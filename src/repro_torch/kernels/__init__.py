@@ -1,0 +1,12 @@
+"""Hand-written CUDA kernels for Hopper (sm_90a), one package per kernel
+family, each laid out as:
+
+  csrc/*.cu  the CUDA C++ source, plain ``extern "C"`` entry points
+  kernel.py  ctypes wrappers with launch counters (built by ``_build``)
+  ref.py     the plain PyTorch versions
+  ops.py     the public ops (precision policy, ``force_ref``)
+
+Kernels:
+  gram  G = H^T H and R = H^T T for m agents in one launch; the triangular
+        kernel and the fused act(X W + b) producer
+"""

@@ -1,0 +1,154 @@
+"""ctypes wrappers of the CUDA Gram kernels in ``csrc/gram.cu``.
+
+``gram_tri``   replaces ``repro/kernels/gram/kernel.py::gram_pallas_tri``.
+``gram_fused`` replaces ``repro/kernels/gram/kernel.py::gram_pallas_fused``.
+
+A wrapper given CPU tensors returns its kernel's plain version
+(``ref.py``); given CUDA tensors it launches the kernel or raises.
+``LAUNCHES`` counts kernel launches per wrapper, and only those.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+from pathlib import Path
+
+import torch
+
+from repro_torch.kernels import _build
+from repro_torch.kernels.gram.ref import gram_fused_ref, gram_ref
+
+SOURCE = Path(__file__).resolve().parent / "csrc" / "gram.cu"
+ACTIVATION_CODES = {"sigmoid": 0, "tanh": 1, "relu": 2, "gelu": 3}
+LAUNCHES = {"gram_tri": 0, "gram_fused": 0}
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+
+
+def reset_launches() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+@functools.cache
+def library() -> ctypes.CDLL:
+    """The built kernel library with its C signatures declared (built and
+    loaded once per process)."""
+    lib = _build.load(SOURCE)
+    for name in ("gram_tri_f32", "gram_tri_bf16"):
+        fn = getattr(lib, name)
+        fn.argtypes = [_P, _P, _P, _P, _I, _I, _I, _I, _P]
+        fn.restype = _I
+    for name in ("gram_fused_f32", "gram_fused_bf16"):
+        fn = getattr(lib, name)
+        fn.argtypes = [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]
+        fn.restype = _I
+    return lib
+
+
+def _on_cpu(*tensors) -> bool:
+    devices = {t.device.type for t in tensors}
+    if devices == {"cpu"}:
+        return True
+    if devices != {"cuda"} or len({t.device for t in tensors}) != 1:
+        raise ValueError(
+            f"Gram kernels take tensors all on the CPU or all on one CUDA "
+            f"device, got {sorted(str(t.device) for t in tensors)}"
+        )
+    return False
+
+
+def _check(name, t, ndim, dtypes):
+    if t.ndim != ndim:
+        raise ValueError(f"{name} must be {ndim}-D, got shape {tuple(t.shape)}")
+    if t.dtype not in dtypes:
+        raise ValueError(f"{name} dtype {t.dtype} not in {dtypes}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def _check_sizes(m, *dims):
+    """The grid's agent axis is gridDim.y (at most 65535); every other size
+    crosses the C interface as a 32-bit int."""
+    if not (1 <= m <= 65535 and all(1 <= d < 2**31 for d in dims)):
+        raise ValueError(
+            f"Gram kernels need 1 <= m <= 65535 and every size in "
+            f"[1, 2^31), got m={m}, sizes {dims}"
+        )
+
+
+def _raise_on(code: int, name: str) -> None:
+    if code != 0:
+        raise RuntimeError(f"{name} launch failed: cudaError {code}")
+
+
+def gram_tri(H: torch.Tensor, T: torch.Tensor):
+    """G = H^T H (symmetric) and R = H^T T for all m agents in one launch.
+
+    H: (m, N, L), T: (m, N, D), both fp32 or both bf16, contiguous.
+    Returns (G (m, L, L) fp32, R (m, L, D) fp32)."""
+    if _on_cpu(H, T):
+        return gram_ref(H, T)
+    dtypes = (torch.float32, torch.bfloat16)
+    _check("H", H, 3, dtypes)
+    _check("T", T, 3, (H.dtype,))
+    m, N, L = H.shape
+    D = T.shape[-1]
+    if T.shape[:2] != (m, N):
+        raise ValueError(f"T shape {tuple(T.shape)} does not match H {tuple(H.shape)}")
+    _check_sizes(m, N, L, D)
+    lib = library()
+    fn = lib.gram_tri_bf16 if H.dtype == torch.bfloat16 else lib.gram_tri_f32
+    G = torch.empty((m, L, L), dtype=torch.float32, device=H.device)
+    R = torch.empty((m, L, D), dtype=torch.float32, device=H.device)
+    stream = torch.cuda.current_stream(H.device).cuda_stream
+    _raise_on(fn(H.data_ptr(), T.data_ptr(), G.data_ptr(), R.data_ptr(),
+                 m, N, L, D, stream), "gram_tri")
+    LAUNCHES["gram_tri"] += 1
+    return G, R
+
+
+def gram_fused(X: torch.Tensor, W: torch.Tensor, b: torch.Tensor,
+               T: torch.Tensor, activation: str = "sigmoid",
+               precision: str = "fp32"):
+    """Gram statistics of ``H = act(X W + b)`` with H built in-kernel.
+
+    X: (m, N, d_in) fp32; W: (d_in, L) fp32; b: (L,) fp32; T: (m, N, D),
+    fp32 for ``precision="fp32"`` and bf16 for ``"bf16"`` (which also rounds
+    the hidden tiles to bf16).  Returns (G (m, L, L), R (m, L, D)) fp32."""
+    if activation not in ACTIVATION_CODES:
+        raise ValueError(
+            f"unknown activation {activation!r}; expected one of "
+            f"{sorted(ACTIVATION_CODES)}"
+        )
+    if precision not in ("fp32", "bf16"):
+        raise ValueError(f"fused precision must be fp32 or bf16, got {precision!r}")
+    if _on_cpu(X, W, b, T):
+        return gram_fused_ref(X, W, b, T, activation, precision)
+    f32 = (torch.float32,)
+    _check("X", X, 3, f32)
+    _check("W", W, 2, f32)
+    _check("b", b, 1, f32)
+    t_dtype = torch.bfloat16 if precision == "bf16" else torch.float32
+    _check("T", T, 3, (t_dtype,))
+    m, N, d_in = X.shape
+    L = W.shape[1]
+    D = T.shape[-1]
+    if W.shape[0] != d_in or b.shape[0] != L or T.shape[:2] != (m, N):
+        raise ValueError(
+            f"shapes do not agree: X {tuple(X.shape)}, W {tuple(W.shape)}, "
+            f"b {tuple(b.shape)}, T {tuple(T.shape)}"
+        )
+    _check_sizes(m, N, L, D, d_in)
+    lib = library()
+    fn = lib.gram_fused_bf16 if precision == "bf16" else lib.gram_fused_f32
+    G = torch.empty((m, L, L), dtype=torch.float32, device=X.device)
+    R = torch.empty((m, L, D), dtype=torch.float32, device=X.device)
+    stream = torch.cuda.current_stream(X.device).cuda_stream
+    _raise_on(fn(X.data_ptr(), W.data_ptr(), b.data_ptr(), T.data_ptr(),
+                 G.data_ptr(), R.data_ptr(), m, N, L, D, d_in,
+                 ACTIVATION_CODES[activation], stream), "gram_fused")
+    LAUNCHES["gram_fused"] += 1
+    return G, R
