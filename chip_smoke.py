@@ -9,14 +9,25 @@ Phases (any failure raises and the script exits non-zero):
   3. kernels: each CUDA kernel against its plain PyTorch version at the
      main path's shape, the full backbone shape (m=8, N=8192, L=2048, D=8,
      d_in=256) and a ragged shape (m=3, N=1000, L=300, D=3, d_in=70), in
-     fp32 and bf16; G must be exactly symmetric; times of the kernel, the
-     plain version and one library call;
+     fp32 and bf16 (``gram_tri_q``: int8 from one Hq/scales per case,
+     block_l 128 and 32, its quantization pass timed apart;
+     ``gram_dense``: one agent); G must be exactly symmetric (all but the
+     dense baseline); times of the kernel, the plain version and one
+     library call;
   4. main path at full width: 8 agents, 8192 samples of 256 features each,
      an L=2048 hidden layer; the fused stats stream (``gram_fused``), the
      materialized stream (``gram_tri``), DMTL-ELM by consensus ADMM on a
      ring, FO-DMTL-ELM, MTL-ELM, and the same DMTL fit from the kernels'
-     plain versions; every kernel of the path must have launched;
-  5. the quickstart's small default mode on the card.
+     plain versions; then, each with its own launch counts, the int8
+     stream (``gram_tri_q``) and a DMTL fit from it, the colored
+     Gauss-Seidel fit (at r = 1 its trajectory held against the same
+     sweeps in fp64 on the CPU, and its staleness-1 sweep against the
+     dense fit), and the dense-baseline op (``gram_dense``); every kernel
+     of each path must have launched; then the dense, int8 and colored
+     fits to 32 iterations at r = 8 and r = 1, their objective gaps read
+     at 8, 16 and 32;
+  5. the quickstart's small default mode on the card, Gauss-Seidel line
+     included.
 
 The last three lines of standard output are the ``{"kernels": ...}`` JSON
 line, the card's name and power limit from nvidia-smi, and
@@ -36,8 +47,10 @@ from pathlib import Path
 
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit)
 PEAK_BYTES_PER_S = 3.35e12
-PEAK_OPS_PER_S = {"fp32": 67e12, "bf16": 989e12}
-TOL = {"fp32": 1e-4, "bf16": 3e-2}
+PEAK_OPS_PER_S = {"fp32": 67e12, "bf16": 989e12, "int8": 1979e12}
+# int8: the tile products are exact, only the fp32 order differs
+TOL = {"fp32": 1e-4, "bf16": 3e-2, "int8": 1e-4}
+H_BYTES = {"fp32": 4, "bf16": 2, "int8": 1}
 REPEATS = 7
 
 
@@ -85,17 +98,23 @@ def rel_err(torch, got, want) -> tuple[float, float]:
     return diff, diff / max(float(want.abs().max()), 1e-30)
 
 
-def gram_cost(kind, m, N, L, D, d_in, precision):
+def gram_cost(kind, m, N, L, D, d_in, precision, n_scales=0):
     """(bytes, bound ms, bound_by, recomputed hidden-layer flops): every
     input read once, every output written once; the useful flops of the
-    lower triangle of G plus R (plus the hidden layer once, fused)."""
-    h_bytes = 2 if precision == "bf16" else 4
+    lower triangle of G plus R (plus the hidden layer once, fused), which
+    is all that G = HᵀH and R = HᵀT need, the dense baseline included.
+    int8 reads 1-byte H, ``n_scales`` fp32 scales and bf16 T, all its
+    operations at the int8 rate."""
+    h_bytes = H_BYTES[precision]
     out_bytes = 4 * m * L * (L + D)
     gram_ops = m * N * L * (L + 1) + 2 * m * N * L * D
-    if kind == "gram_tri":
+    recompute = 0
+    if kind in ("gram_tri", "gram_dense"):
         nbytes = h_bytes * m * N * (L + D) + out_bytes
         op_ms = gram_ops / PEAK_OPS_PER_S[precision] * 1e3
-        recompute = 0
+    elif kind == "gram_tri_q":
+        nbytes = m * N * L + 4 * n_scales + 2 * m * N * D + out_bytes
+        op_ms = gram_ops / PEAK_OPS_PER_S[precision] * 1e3
     else:
         nbytes = (4 * (m * N * d_in + d_in * L + L) + h_bytes * m * N * D
                   + out_bytes)
@@ -110,13 +129,57 @@ def gram_cost(kind, m, N, L, D, d_in, precision):
 
 
 def kernel_case(torch, kernel, ref, kind, shape, precision, activation,
-                gen, label):
+                gen, label, block_l=128):
     """One kernel against its plain version on the same inputs, timed
-    beside the plain version and one library call."""
+    beside the plain version and one library call (None where PyTorch has
+    no call for the shape)."""
     m, N, L, D, d_in = shape
-    dtype = torch.bfloat16 if precision == "bf16" else torch.float32
+    dtype = torch.bfloat16 if precision != "fp32" else torch.float32
     T = torch.randn(m, N, D, device="cuda", generator=gen).to(dtype)
-    if kind == "gram_tri":
+    extra, n_scales = {}, 0
+    if kind == "gram_tri_q":
+        H = torch.randn(m, N, L, device="cuda", generator=gen) / math.sqrt(L)
+        from repro_torch.kernels.gram.ops import resolve_block_n
+
+        bn = resolve_block_n(N, 512)
+
+        def quantize():
+            return ref.quantize_tiles(H, bn, block_l, gen)
+
+        extra["quant_ms"] = time_ms(torch, quantize)
+        Hq, scales = quantize()      # every timed call below uses these
+        n_scales = scales.numel()
+        extra.update(block_n=bn, block_l=block_l)
+        del H
+
+        def run():
+            return kernel.gram_tri_q(Hq, scales, T, block_n=bn,
+                                     block_l=block_l)
+
+        def plain():
+            return ref.gram_tri_q_ref(Hq, scales, T, bn, block_l)
+
+        library = None
+        if N % 8 == 0 and L % 8 == 0:
+            # the int8 products of G alone, per agent, without the scales
+            HqT = Hq.mT.contiguous()
+
+            def library():
+                return [torch._int_mm(HqT[a], Hq[a]) for a in range(m)]
+    elif kind == "gram_dense":
+        H = (torch.randn(N, L, device="cuda", generator=gen)
+             / math.sqrt(L)).to(dtype)
+        T = T[0]
+
+        def run():
+            return kernel.gram_dense(H, T)
+
+        def plain():
+            return ref.gram_ref(H, T)
+
+        def library():
+            return torch.mm(H.T, H), torch.mm(H.T, T)
+    elif kind == "gram_tri":
         H = (torch.randn(m, N, L, device="cuda", generator=gen)
              / math.sqrt(L)).to(dtype)
 
@@ -150,26 +213,34 @@ def kernel_case(torch, kernel, ref, kind, shape, precision, activation,
     Gp, Rp = plain()
     check(bool(torch.isfinite(G).all() and torch.isfinite(R).all()),
           f"{kind} {label}: non-finite output")
-    check(torch.equal(G, G.mT), f"{kind} {label}: G is not exactly symmetric")
+    if kind != "gram_dense":
+        check(torch.equal(G, G.mT),
+              f"{kind} {label}: G is not exactly symmetric")
     abs_g, rel_g = rel_err(torch, G, Gp)
     abs_r, rel_r = rel_err(torch, R, Rp)
     check(rel_g <= TOL[precision] and rel_r <= TOL[precision],
           f"{kind} {label} {precision}: relative error G {rel_g:.3g} "
           f"R {rel_r:.3g} above {TOL[precision]}")
-    nbytes, bound_ms, bound_by, recompute = gram_cost(kind, m, N, L, D, d_in,
-                                                      precision)
+    if kind == "gram_dense":
+        m = 1
+    nbytes, bound_ms, bound_by, recompute = gram_cost(
+        kind, m, N, L, D, d_in, precision, n_scales)
     case = {
         "case": label, "dtype": precision, "activation": activation,
         "shape": {"m": m, "N": N, "L": L, "D": D, "d_in": d_in},
         "max_abs_err": max(abs_g, abs_r), "rel_err": max(rel_g, rel_r),
         "tol": TOL[precision],
         "kernel_ms": time_ms(torch, run), "plain_ms": time_ms(torch, plain),
-        "library_ms": time_ms(torch, library),
+        "library_ms": None if library is None else time_ms(torch, library),
         "bound_ms": bound_ms, "bound_by": bound_by, "bytes": nbytes,
+        **extra,
     }
     if kind == "gram_fused":
         case["recomputed_hidden_flops"] = recompute
-    del G, R, Gp, Rp
+    if kind == "gram_dense":
+        # what the baseline's algorithm does: every tile pair, the full square
+        case["algorithmic_ops"] = 2 * N * L * L + 2 * N * L * D
+    del G, R, Gp, Rp, run, plain, library
     torch.cuda.empty_cache()
     return case
 
@@ -193,6 +264,7 @@ def main() -> int:
     from repro_torch.data import pipeline, synthetic
     from repro_torch.kernels import _build
     from repro_torch.kernels.gram import kernel, ref
+    from repro_torch.kernels.gram import ops as gram_ops
 
     # 1. environment -----------------------------------------------------
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -220,7 +292,8 @@ def main() -> int:
     full_shape = (8, 8192, 2048, 8, 256)
     ragged_shape = (3, 1000, 300, 3, 70)
     t0 = time.perf_counter()
-    cases = {"gram_tri": [], "gram_fused": []}
+    cases = {"gram_tri": [], "gram_fused": [], "gram_tri_q": [],
+             "gram_dense": []}
     cases["gram_tri"].append(kernel_case(
         torch, kernel, ref, "gram_tri", main_shape, "fp32", None, gen,
         "main_path"))
@@ -236,6 +309,23 @@ def main() -> int:
                 cases["gram_fused"].append(kernel_case(
                     torch, kernel, ref, "gram_fused", shape, precision,
                     activation, gen, label))
+    for label, shape, block_l in (("main_path", main_shape, 128),
+                                  ("main_path_bl32", main_shape, 32),
+                                  ("full", full_shape, 128),
+                                  ("ragged", ragged_shape, 128)):
+        cases["gram_tri_q"].append(kernel_case(
+            torch, kernel, ref, "gram_tri_q", shape, "int8", None, gen,
+            label, block_l=block_l))
+    # one agent: the dense path's own shape first, then full and ragged
+    dense_path_shape = (1, 8192, 2048, 3, 256)
+    for label, shape, precisions in (
+            ("main_path", dense_path_shape, ("fp32",)),
+            ("full", full_shape, ("fp32", "bf16")),
+            ("ragged", ragged_shape, ("fp32", "bf16"))):
+        for precision in precisions:
+            cases["gram_dense"].append(kernel_case(
+                torch, kernel, ref, "gram_dense", shape, precision, None,
+                gen, label))
     kernels_seconds = time.perf_counter() - t0
     emit({"phase": "kernels", "seconds": kernels_seconds,
           "cases": {k: len(v) for k, v in cases.items()}})
@@ -334,14 +424,145 @@ def main() -> int:
           "max_rel_diff_vs_plain_path": traj,
           "peak_mem_gb": torch.cuda.max_memory_allocated() / 2**30})
 
+    def test_error(U, A):
+        return float(synthetic.classification_error(H_te @ U @ A,
+                                                    data.Y_test))
+
+    # 4b. the int8 stream (stats_precision="int8") and a DMTL fit from it
+    kernel.reset_launches()
+    stats_q = timed("stats_int8_s", lambda: pipeline.stream_sufficient_stats(
+        ((fmap(x), y) for x, y in batches), precision="int8"))
+    q_state, q_diag = timed("dmtl_fit_int8_s",
+                            lambda: engine.fit_dense(stats_q, ring, cfg))
+    launches["gram_tri_q"] = kernel.LAUNCHES["gram_tri_q"]
+    check(launches["gram_tri_q"] == len(batches),
+          f"int8 stream launched gram_tri_q {launches['gram_tri_q']} times, "
+          f"not once per batch ({len(batches)})")
+    check(all(bool(torch.isfinite(v).all()) for v in q_diag.values()),
+          "int8 dmtl diagnostics not finite")
+    # (U, A) of the int8 fit scored on the fp32 stats, beside the fp32 fit's
+    obj_fp32 = float(engine.objective_from_stats(stats, state.U, state.A,
+                                                 cfg.mu1, cfg.mu2))
+    obj_q = float(engine.objective_from_stats(stats, q_state.U, q_state.A,
+                                              cfg.mu1, cfg.mu2))
+    _, g_rel = rel_err(torch, stats_q.G, stats.G)
+    err["dmtl_elm_int8"] = test_error(q_state.U, q_state.A)
+    check(math.isfinite(err["dmtl_elm_int8"])
+          and err["dmtl_elm_int8"] < 200 / 3,
+          f"int8 dmtl test error {err['dmtl_elm_int8']} is not below chance")
+    check(g_rel <= 5e-2, f"int8 stats G off the fp32 stats by {g_rel:.3g}")
+
+    # 4c. the colored Gauss-Seidel executor on the fp32 stats
+    gs_state, gs_diag = timed("colored_fit_s", lambda: engine.fit_colored(
+        stats, ring, cfg))
+    check(all(bool(torch.isfinite(v).all()) for v in gs_diag.values()),
+          "colored diagnostics not finite")
+    err["dmtl_elm_colored"] = test_error(gs_state.U, gs_state.A)
+    check(err["dmtl_elm_colored"] < 200 / 3,
+          f"colored test error {err['dmtl_elm_colored']} is not below chance")
+    # Its trajectory held at a tolerance.  The all-ones start is symmetric
+    # in U's r columns, so at r >= 2 every executor's trajectory follows
+    # fp32 roundoff: there the staleness-1 sweep, the dense fit's
+    # arithmetic run one class at a time, parts from the dense fit (printed,
+    # not checked).  At r = 1 the card's sweeps (fixed and Gauss-Southwell
+    # order) are held against the same sweeps in fp64 on the CPU, and the
+    # staleness-1 sweep against the dense fit: the objective at 1e-5, the
+    # consensus residual at 1e-2 (fp32 alone moves it by a few 1e-3).
+    _, st1_diag = timed("colored_fit_staleness1_s", lambda: engine.fit_colored(
+        stats, ring, cfg, staleness=1))
+    cfg1 = dataclasses.replace(cfg, r=1)
+    stats64 = engine.SufficientStats(
+        *(x.cpu().double() if torch.is_tensor(x) else x for x in stats))
+
+    def traj_gap(a, b, key):
+        x, y = a[key].cpu().double(), b[key].cpu().double()
+        return float(((x - y).abs() / y.abs()).max())
+
+    colored_traj = {f"r{r}_staleness1_vs_dense_objective_unchecked":
+                    traj_gap(st1_diag, diag, "objective")}
+    pairs = {"staleness1_vs_dense": (
+        engine.fit_colored(stats, ring, cfg1, staleness=1)[1],
+        engine.fit_dense(stats, ring, cfg1)[1])}
+    for order in ("fixed", "gauss_southwell"):
+        pairs[f"{order}_vs_cpu_fp64"] = tuple(
+            engine.fit_colored(st, ring, cfg1, order=order)[1]
+            for st in (stats, stats64))
+    for name, (a, b) in pairs.items():
+        for key, tol in (("objective", 1e-5), ("consensus", 1e-2)):
+            gap = traj_gap(a, b, key)
+            colored_traj[f"r1_{name}_{key}"] = gap
+            check(gap <= tol, f"colored r=1 {name} {key} trajectory off by "
+                  f"{gap:.3g}, above {tol}")
+
+    # 4d. the dense-baseline op on agent 0's full-width hidden features
+    H0 = fmap(data.X_train[0])
+    kernel.reset_launches()
+    G0, R0 = timed("gram_dense_op_s", lambda: gram_ops.gram(
+        H0, data.Y_train[0], variant="dense"))
+    launches["gram_dense"] = kernel.LAUNCHES["gram_dense"]
+    check(launches["gram_dense"] == 1, "ops.gram(variant='dense') did not "
+          "launch gram_dense once")
+    for a, b, leaf in ((G0, stats_mat.G[0], "G"), (R0, stats_mat.R[0], "R")):
+        _, rel = rel_err(torch, a, b)
+        check(rel <= TOL["fp32"], f"dense-op {leaf} vs stream stats: {rel:.3g}")
+    emit({"phase": "main_path_slice2", "times_s": times,
+          "launches": launches, "test_error_pct": err,
+          "int8_stats_G_rel_err": g_rel,
+          "int8_fit_objective_on_fp32_stats": obj_q,
+          "fp32_fit_objective": obj_fp32,
+          "int8_objective_rel_gap": (obj_q - obj_fp32) / abs(obj_fp32),
+          "colored_objective": gs_diag["objective"].tolist(),
+          "colored_consensus": gs_diag["consensus"].tolist(),
+          "colored_max_rel_diff": colored_traj})
+
+    # 4e. the int8 and colored objective gaps over a longer run: the dense
+    # fp32, int8 and colored fits to 32 iterations, read at 8, 16 and 32,
+    # at r = 8 and at r = 1
+    horizon = {}
+    t0 = time.perf_counter()
+    for rank in (r, 1):
+        long_cfg = dataclasses.replace(cfg, r=rank, iters=32)
+        runners = {
+            "dense": engine.make_runner(stats, ring, long_cfg),
+            "int8": engine.make_runner(stats_q, ring, long_cfg),
+            "colored": engine.make_runner(stats, ring, long_cfg,
+                                          executor="colored"),
+        }
+        states = {k: run.init_state() for k, run in runners.items()}
+        for stop in (8, 16, 32):
+            row = {}
+            for name, runner in runners.items():
+                states[name], d = runner.run_segment(states[name],
+                                                     stop - states[name].k)
+                st = states[name]
+                row[name] = {
+                    # every fit's (U, A) scored on the fp32 stats
+                    "objective": float(engine.objective_from_stats(
+                        stats, st.U, st.A, cfg.mu1, cfg.mu2)),
+                    "consensus": float(d["consensus"][-1]),
+                    "test_error_pct": test_error(st.U, st.A),
+                }
+                check(math.isfinite(row[name]["objective"]),
+                      f"r={rank} {name} objective at {stop} not finite")
+            obj = row["dense"]["objective"]
+            for name in ("int8", "colored"):
+                row[f"{name}_objective_rel_gap"] = (
+                    row[name]["objective"] - obj) / abs(obj)
+            horizon[f"r{rank}_iter{stop}"] = row
+    emit({"phase": "horizon", "seconds": time.perf_counter() - t0,
+          "at": horizon})
+
     # 5. quickstart ----------------------------------------------------------
     t0 = time.perf_counter()
     qs = quickstart.main(device="cuda")
     emit({"phase": "quickstart", "seconds": time.perf_counter() - t0,
-          "test_mse": {k: qs[k] for k in ("local", "mtl", "dmtl", "fo")}})
+          "test_mse": {k: qs[k] for k in ("local", "mtl", "dmtl", "fo",
+                                          "gs")}})
 
     sources = {"gram_tri": "src/repro/kernels/gram/kernel.py:224",
-               "gram_fused": "src/repro/kernels/gram/kernel.py:464"}
+               "gram_fused": "src/repro/kernels/gram/kernel.py:464",
+               "gram_tri_q": "src/repro/kernels/gram/kernel.py:334",
+               "gram_dense": "src/repro/kernels/gram/kernel.py:138"}
     rows = []
     for name, cs in cases.items():
         top = cs[0]     # the main path's shape

@@ -35,3 +35,14 @@ def state_from_numpy(U, A, lam, device="cuda") -> DenseState:
     """A consensus state U (m, L, r), A (m, r, d), lam (E, L, r)."""
     return DenseState(U=_tensor(U, device), A=_tensor(A, device),
                       lam=_tensor(lam, device))
+
+
+def quantized_from_numpy(Hq, scales, device="cuda"):
+    """int8 tiles Hq (m, N, L) and their fp32 scales (m, N / block_n,
+    L / block_l), as the reference's ``ops.quantize_tiles`` returns them,
+    as tensors for ``kernel.gram_tri_q``.  Hq keeps its int8 values."""
+    q = np.asarray(Hq)
+    if q.dtype != np.int8:
+        raise ValueError(f"Hq must be int8, got {q.dtype}")
+    return (torch.tensor(q, device=device),
+            torch.tensor(np.asarray(scales, dtype=np.float32), device=device))

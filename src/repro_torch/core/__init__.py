@@ -1,6 +1,6 @@
 """The paper's algorithms on sufficient statistics: ELM primitives, solvers,
-consensus graphs, the neighbor exchange, the dense consensus engine, and the
-MTL-ELM / DMTL-ELM / FO-DMTL-ELM entry points."""
+consensus graphs, the neighbor exchange, the dense and colored consensus
+executors, and the MTL-ELM / DMTL-ELM / FO-DMTL-ELM entry points."""
 
 from repro_torch.core.dmtl_elm import (
     DMTLELMConfig,
@@ -19,7 +19,9 @@ from repro_torch.core.elm import (
 from repro_torch.core.engine import (
     ConsensusConfig,
     SufficientStats,
+    fit_colored,
     fit_dense,
+    jacobian_schedule,
     produce_stats,
     sufficient_stats,
     sufficient_stats_fused,
@@ -47,8 +49,9 @@ __all__ = [
     "ConsensusConfig", "DMTLELMConfig", "DMTLELMState", "ELMFeatureMap",
     "Graph", "MTLELMConfig", "SufficientStats", "chain", "complete",
     "dmtl_elm_fit", "dmtl_elm_predict", "elm_fit", "elm_objective",
-    "elm_predict", "erdos", "expander", "fit", "fit_dense",
-    "fo_dmtl_elm_fit", "hypercube", "make_feature_map", "mtl_elm_fit",
+    "elm_predict", "erdos", "expander", "fit", "fit_colored", "fit_dense",
+    "fo_dmtl_elm_fit", "hypercube", "jacobian_schedule", "make_feature_map",
+    "mtl_elm_fit",
     "mtl_elm_fit_from_stats", "mtl_elm_predict", "paper_fig2a",
     "produce_stats", "ring", "star", "sufficient_stats",
     "sufficient_stats_fused",

@@ -8,7 +8,8 @@ with edge-consensus constraints over a connected graph, solved by a hybrid
 Jacobian (across agents) / Gauss-Seidel (U then A within an agent) proximal
 multi-block ADMM.  The data are reduced to
 :class:`~repro_torch.core.engine.SufficientStats` once, then
-``engine.fit_dense`` runs the iterations.
+``engine.fit_dense`` (or the colored Gauss-Seidel sweep
+``engine.fit_colored``) runs the iterations.
 
 Solver choice (cfg.u_solver — ``engine.U_SOLVERS``): "kron" (the paper's
 eq. 19), "sylvester" (exact, eigh(G_t) hoisted), "cg", "pcg" (Jacobi-
@@ -79,6 +80,9 @@ def fit(
     cfg: DMTLELMConfig,
     *,
     executor: str = "dense",
+    schedule=None,
+    staleness: int = 0,
+    order: str = "fixed",
     feature_map=None,
     use_kernel: bool = True,
     checkpoint_dir=None,
@@ -88,9 +92,13 @@ def fit(
 ) -> tuple[DMTLELMState, dict]:
     """The DMTL-ELM entry point: stats pass, then the consensus iterations.
 
-    ``executor="dense"`` (the synchronous Jacobian sweep) is the one ported
-    executor; "colored" and "async" belong to port slice 2, "sharded" to
-    slice 3.  The stats pass honors ``cfg.stats_producer``: with
+    ``executor="dense"`` is the synchronous Jacobian sweep;
+    ``executor="colored"`` the Gauss-Seidel colored sweep
+    (``engine.fit_colored``, with ``schedule=``, ``staleness=`` and
+    ``order=``, which apply to it alone).  "async" belongs to port slice 2
+    (netsim), "sharded" to slice 3.  ``cfg.stats_precision`` picks the
+    Gram pass's precision ("fp32" | "bf16" | "int8").  The stats pass
+    honors ``cfg.stats_producer``: with
     ``"fused"`` the first argument is the RAW per-agent input X
     (m, N, d_in) and ``feature_map=`` is required, the hidden layer running
     inside the Gram kernel.  ``use_kernel=False`` takes the Gram kernels'
@@ -105,10 +113,25 @@ def fit(
         raise ValueError(
             f"unknown executor {executor!r}; expected one of {EXECUTORS}"
         )
-    if executor != "dense":
+    if executor not in ("dense", "colored"):
         raise _not_ported(
             f"executor={executor!r}",
             "slice 3" if executor == "sharded" else "slice 2",
+        )
+    if executor != "colored" and schedule is not None:
+        raise ValueError(
+            "schedule= only applies to executor='colored', "
+            f"got executor={executor!r}"
+        )
+    if executor != "colored" and staleness != 0:
+        raise ValueError(
+            f"staleness= only applies to executor='colored', "
+            f"got executor={executor!r}"
+        )
+    if executor != "colored" and order != "fixed":
+        raise ValueError(
+            f"order= only applies to executor='colored', "
+            f"got executor={executor!r}"
         )
     if checkpoint_dir is not None:
         raise _not_ported("checkpoint_dir= (checkpointed runs)", "slice 2")
@@ -134,12 +157,16 @@ def fit(
             f"stats_producer={cfg.stats_producer!r}"
         )
     if cfg.aggregator != "mean":
-        raise _not_ported(f"aggregator={cfg.aggregator!r}", "slice 2")
+        raise _not_ported(f"aggregator={cfg.aggregator!r}",
+                          "slice 2, with netsim")
     stats = engine.produce_stats(
         H, T, producer=cfg.stats_producer, feature_map=feature_map,
         precision=cfg.stats_precision, use_kernel=use_kernel,
     )
-    return engine.fit_dense(stats, g, cfg)
+    state, diags = engine.make_runner(
+        stats, g, cfg, executor=executor, schedule=schedule,
+        staleness=staleness, order=order).run()
+    return DenseState(state.U, state.A, state.lam), diags
 
 
 def dmtl_elm_predict(U_t, A_t, H) -> torch.Tensor:

@@ -9,9 +9,11 @@ to per-agent updates over the sufficient statistics
 ``sufficient_stats`` / ``sufficient_stats_fused`` / ``accumulate_stats``
     The stats producers.  With ``use_kernel=True`` (the default) a CUDA
     tensor goes through the hand-written Gram kernels (one launch of the
-    triangular kernel for all m agents, or the fused ``act(X W + b)``
-    kernel); a CPU tensor, or ``use_kernel=False``, takes their plain
-    PyTorch versions.  Chunked accumulation is addition of producer outputs;
+    triangular kernel for all m agents, the int8 kernel for
+    ``precision="int8"``, or the fused ``act(X W + b)`` kernel); a CPU
+    tensor, or ``use_kernel=False``, takes their plain PyTorch versions
+    (for int8: the quantize-dequantize emulation on the same rounding
+    draws).  Chunked accumulation is addition of producer outputs;
     ``compensated=True`` makes the chunk fold a Kahan sum.
 ``agent_update``
     One ADMM round (paper eqs. 19/23 + 21) for all agents at once, batched
@@ -22,8 +24,12 @@ to per-agent updates over the sufficient statistics
     The adaptive-gamma dual ascent (eq. 16 + Lemma 2), per edge.
 ``fit_dense``
     The synchronous Jacobian executor: all agents on one device, neighbor
-    messages from ``exchange.DenseExchange``.  The only executor of this
-    slice; the colored, async and sharded executors come later.
+    messages from ``exchange.DenseExchange``.
+``fit_colored``
+    Gauss-Seidel colored sweeps over the same body: one color class at a
+    time, neighbor sums re-gathered between classes, optional message
+    staleness and the Gauss-Southwell class order.  The async and sharded
+    executors come in later slices.
 
 The reference vmaps the per-agent body and scans the iterations inside one
 compiled program.  Here the agent axis is a batch dimension written out and
@@ -33,7 +39,7 @@ the iterations are a Python loop over eager PyTorch ops.
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, NamedTuple
+from typing import Callable, NamedTuple, Sequence
 
 import torch
 
@@ -75,19 +81,18 @@ def _t2(T: torch.Tensor) -> torch.Tensor:
 
 def sufficient_stats(
     H: torch.Tensor, T: torch.Tensor, use_kernel: bool = True,
-    precision: str = "fp32",
+    precision: str = "fp32", quant_seed: int = 0,
 ) -> SufficientStats:
     """The MATERIALIZED stats producer.  H: (N, L) or (m, N, L); T matches.
 
     A stacked (m, N, L) input is ONE launch of the triangular Gram kernel
     for all m agents.  ``precision="bf16"`` streams H and T in bf16 with
-    fp32 accumulation; ``t2`` always stays fp32."""
-    if H.ndim == 2:
-        G, R = gram_ops.gram(H, T, precision=precision,
-                             force_ref=not use_kernel)
-    else:
-        G, R = gram_ops.gram_batched(H, T, precision=precision,
-                                     force_ref=not use_kernel)
+    fp32 accumulation; ``precision="int8"`` quantizes H per tile with the
+    rounding stream of ``quant_seed`` (``kernels.gram.ops``); ``t2`` always
+    stays fp32."""
+    op = gram_ops.gram if H.ndim == 2 else gram_ops.gram_batched
+    G, R = op(H, T, precision=precision, force_ref=not use_kernel,
+              quant_seed=quant_seed)
     return SufficientStats(G=G, R=R, n=_count(H.shape[:-2], H.shape[-2],
                                               H.device), t2=_t2(T))
 
@@ -117,6 +122,7 @@ STATS_PRODUCERS = ("materialized", "fused")
 def produce_stats(
     batch: torch.Tensor, T: torch.Tensor, *, producer: str = "materialized",
     feature_map=None, use_kernel: bool = True, precision: str = "fp32",
+    quant_seed: int = 0,
 ) -> SufficientStats:
     """Dispatch ONE batch through the configured stats producer.
 
@@ -148,7 +154,7 @@ def produce_stats(
             f"producer={producer!r}"
         )
     return sufficient_stats(batch, T, use_kernel=use_kernel,
-                            precision=precision)
+                            precision=precision, quant_seed=quant_seed)
 
 
 def init_stats(m: int, L: int, d: int, dtype=torch.float32,
@@ -162,11 +168,12 @@ def init_stats(m: int, L: int, d: int, dtype=torch.float32,
 def accumulate_stats(
     stats: SufficientStats, H: torch.Tensor, T: torch.Tensor,
     use_kernel: bool = True, precision: str = "fp32",
-    producer: str = "materialized", feature_map=None,
+    producer: str = "materialized", feature_map=None, quant_seed: int = 0,
 ) -> SufficientStats:
     """Fold one batch into running stats (streaming accumulation)."""
     b = produce_stats(H, T, producer=producer, feature_map=feature_map,
-                      use_kernel=use_kernel, precision=precision)
+                      use_kernel=use_kernel, precision=precision,
+                      quant_seed=quant_seed)
     return SufficientStats(
         G=stats.G + b.G, R=stats.R + b.R, n=stats.n + b.n, t2=stats.t2 + b.t2
     )
@@ -184,7 +191,7 @@ def accumulate_stats_chunked(
     stats: SufficientStats, H: torch.Tensor, T: torch.Tensor,
     chunk: int, use_kernel: bool = True, precision: str = "fp32",
     compensated: bool = False, producer: str = "materialized",
-    feature_map=None,
+    feature_map=None, quant_seed: int = 0,
 ) -> SufficientStats:
     """Fold a long (m, B, ...) batch in ``chunk``-row pieces.
 
@@ -192,7 +199,9 @@ def accumulate_stats_chunked(
     call on the true tail rows.  (Zero-padding the tail would be wrong for
     the fused producer: a zero input row maps to ``act(b) != 0``.)  ``n``
     counts the true rows and, like every leaf, comes out per-agent (m,).
-    ``compensated=True`` folds through Kahan sums."""
+    ``compensated=True`` folds through Kahan sums.  int8 chunk c rounds
+    with seed ``quant_seed + c`` and the tail with ``quant_seed + k`` (k
+    full chunks), so chunk errors stay independent."""
     m, B = H.shape[0], H.shape[1]
     k = B // chunk
     device = stats.G.device
@@ -202,17 +211,19 @@ def accumulate_stats_chunked(
 
     def pieces():
         for c in range(k):
-            yield H[:, c * chunk:(c + 1) * chunk], T[:, c * chunk:(c + 1) * chunk]
+            yield (H[:, c * chunk:(c + 1) * chunk],
+                   T[:, c * chunk:(c + 1) * chunk], quant_seed + c)
         if B > k * chunk:
-            yield H[:, k * chunk:], T[:, k * chunk:]
+            yield H[:, k * chunk:], T[:, k * chunk:], quant_seed + k
 
     G, R, t2 = stats.G, stats.R, t2_0
     if compensated:
         cG, cR, ct2 = (torch.zeros_like(G), torch.zeros_like(R),
                        torch.zeros_like(t2))
-    for h, t in pieces():
+    for h, t, seed in pieces():
         b = produce_stats(h, t, producer=producer, feature_map=feature_map,
-                          use_kernel=use_kernel, precision=precision)
+                          use_kernel=use_kernel, precision=precision,
+                          quant_seed=seed)
         if compensated:
             G, cG = _kahan_add(G, cG, b.G)
             R, cR = _kahan_add(R, cR, b.R)
@@ -279,7 +290,7 @@ class ConsensusConfig:
     prox: str = "prox_linear"    # P_t = tau_t I - rho C_t^T C_t | "standard": tau_t I
     u_solver: str = "sylvester"  # U_SOLVERS key: "kron" | "sylvester" | "cg" | "pcg"
     # Gram-pass precision of the entry points that reduce raw data to stats
-    # ("fp32" | "bf16"; "int8" belongs to the next port slice).
+    # ("fp32" | "bf16" | "int8"; int8 is the materialized stream only).
     stats_precision: str = "fp32"
     # "materialized" computes H = g(X W + b) and streams it through the
     # triangular kernel; "fused" computes the hidden layer inside the Gram
@@ -447,7 +458,8 @@ def _edge_setup(
     if cfg.aggregator != "mean":
         raise NotImplementedError(
             f"aggregator={cfg.aggregator!r}: the robust aggregators are not "
-            f"ported yet (port slice 2); only 'mean' is available"
+            f"ported yet; they come with the netsim slice (port slice 2, "
+            f"ROADMAP queue 1 item 8); only 'mean' is available"
         )
     m, L = stats.G.shape[0], stats.G.shape[-1]
     d = stats.R.shape[-1]
@@ -495,12 +507,15 @@ def _iteration_diag(stats, cfg, U, A, lam_new, resid_new, gamma,
 
 
 class RunState(NamedTuple):
-    """The mid-run state the dense executor advances."""
+    """The mid-run state the single-device executors advance."""
 
     U: torch.Tensor     # (m, L, r) stacked subspaces
     A: torch.Tensor     # (m, r, d) stacked heads
     lam: torch.Tensor   # (E, L, r) per-edge duals
     k: int              # iterations done
+    # colored with staleness s: (s, m, L, r), hist[j] = U published at the
+    # end of iteration k - s + j (U^0 before the start); None otherwise
+    hist: torch.Tensor | None = None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -543,13 +558,45 @@ class Runner:
         return self.run_segment(state, self.cfg.iters - state.k)
 
 
+def _diag_rows(rows: list, like: torch.Tensor) -> dict:
+    """Stack per-iteration diagnostics rows into (n,) tensors."""
+    keys = ("objective", "lagrangian", "consensus", "gamma", "gamma_min",
+            "primal_sq")
+    return {
+        key: (torch.stack([r[key] for r in rows]) if rows
+              else torch.zeros((0,), dtype=like.dtype, device=like.device))
+        for key in keys
+    }
+
+
 def make_runner(
-    stats: SufficientStats, g: Graph, cfg: ConsensusConfig,
+    stats: SufficientStats, g: Graph, cfg: ConsensusConfig, *,
+    executor: str = "dense",
+    schedule: Sequence[Sequence[int]] | None = None,
+    staleness: int = 0, order: str = "fixed",
 ) -> Runner:
-    """The segmented dense :class:`Runner` behind :func:`fit_dense` (the
-    reference's ``_make_dense_runner``, which its ``make_runner`` reaches
-    with ``executor="dense"``): ``runner.run()`` reproduces ``fit_dense``;
-    ``runner.run(state)`` starts from a given :class:`RunState`."""
+    """The segmented :class:`Runner` of a single-device executor:
+    ``executor="dense"`` (behind :func:`fit_dense`) or ``"colored"``
+    (behind :func:`fit_colored`, with ``schedule``/``staleness``/``order``).
+    ``runner.run()`` reproduces the ``fit_*`` call; ``runner.run(state)``
+    starts from a given :class:`RunState`."""
+    if executor == "colored":
+        return _colored_runner(stats, g, cfg, schedule=schedule,
+                               staleness=staleness, order=order)
+    if executor in ("async", "sharded", "sharded_graph"):
+        raise NotImplementedError(
+            f"executor={executor!r} is not ported yet: it belongs to port "
+            + ("slice 2 (netsim)" if executor == "async" else "slice 3")
+        )
+    if executor != "dense":
+        raise ValueError(
+            f"unknown executor {executor!r}; expected one of 'dense', "
+            f"'colored', 'async', 'sharded', 'sharded_graph'"
+        )
+    if schedule is not None or staleness != 0 or order != "fixed":
+        raise ValueError(
+            "schedule=/staleness=/order= only apply to executor='colored'"
+        )
     es = _edge_setup(stats, g, cfg)
     stats = es.stats
     m = stats.G.shape[0]
@@ -576,14 +623,7 @@ def make_runner(
         for _ in range(n):
             U, A, lam, diag = step(U, A, lam)
             rows.append(diag)
-        keys = ("objective", "lagrangian", "consensus", "gamma", "gamma_min",
-                "primal_sq")
-        diags = {
-            key: (torch.stack([r[key] for r in rows]) if rows
-                  else torch.zeros((0,), dtype=U.dtype, device=U.device))
-            for key in keys
-        }
-        return RunState(U=U, A=A, lam=lam, k=state.k + n), diags
+        return RunState(U=U, A=A, lam=lam, k=state.k + n), _diag_rows(rows, U)
 
     return Runner("dense", cfg, init_fn, segment_fn)
 
@@ -607,3 +647,169 @@ def fit_dense(
     from stats alone."""
     state, diags = make_runner(stats, g, cfg).run()
     return DenseState(state.U, state.A, state.lam), diags
+
+
+# --------------------------------------------------------------------------
+# The colored executor: Gauss-Seidel sweeps over color classes
+# --------------------------------------------------------------------------
+
+
+def jacobian_schedule(m: int) -> tuple[tuple[int, ...], ...]:
+    """The single-class schedule: every agent in one class.  Running
+    :func:`fit_colored` with it reproduces the Jacobian sweep of
+    :func:`fit_dense`."""
+    return (tuple(range(m)),)
+
+
+def _validate_schedule(schedule, m: int) -> None:
+    seen: set[int] = set()
+    for cls in schedule:
+        for t in cls:
+            if not 0 <= t < m:
+                raise ValueError(f"schedule agent {t} out of range for m={m}")
+            if t in seen:
+                raise ValueError(f"agent {t} appears twice in schedule")
+            seen.add(t)
+    if len(seen) != m:
+        raise ValueError(
+            f"schedule covers {len(seen)} of {m} agents; classes must "
+            f"partition the agent set"
+        )
+
+
+def fit_colored(
+    stats: SufficientStats,
+    g: Graph,
+    cfg: ConsensusConfig,
+    *,
+    schedule: Sequence[Sequence[int]] | None = None,
+    staleness: int = 0,
+    order: str = "fixed",
+) -> tuple[DenseState, dict]:
+    """Gauss-Seidel / colored-sweep executor around the same
+    :func:`agent_update`.
+
+    The agents update one color class at a time (``schedule`` defaults to
+    :meth:`Graph.chromatic_schedule`), with ``neigh_sum`` re-gathered from
+    the live U between classes, so later classes see the current iterate
+    of earlier ones.  One ADMM iteration is all classes plus one shared
+    :func:`dual_step`.
+
+    ``staleness=k >= 1`` makes every class of iteration i gather from the
+    U published at the end of iteration i - k (U^0 while i < k);
+    ``staleness=1`` is the Jacobian sweep of :func:`fit_dense` for any
+    schedule.  ``order="gauss_southwell"`` (needs ``staleness=0``) runs the
+    classes each iteration in order of the summed squared residual of
+    their incident edges, largest first; ties keep schedule order.
+
+    The adaptive gamma can collapse before consensus under these faster
+    sweeps: ``cfg.gamma_floor`` (e.g. 0.05) keeps the duals moving.
+    Returns ``(DenseState, diagnostics)`` like :func:`fit_dense`."""
+    runner = _colored_runner(stats, g, cfg, schedule=schedule,
+                             staleness=staleness, order=order)
+    state, diags = runner.run()
+    return DenseState(state.U, state.A, state.lam), diags
+
+
+class _Phase(NamedTuple):
+    """What one color class needs, sliced once outside the loop."""
+
+    idx: torch.Tensor          # (k,) agents of the class
+    stats: SufficientStats     # the class's rows
+    precomp: object
+    deg: torch.Tensor
+    tau: torch.Tensor
+    zeta: torch.Tensor
+
+
+def _make_phase(cls, es: _EdgeSetup) -> _Phase:
+    idx = torch.as_tensor(cls, dtype=torch.int64, device=es.stats.G.device)
+    st = es.stats
+    stats_c = SufficientStats(G=st.G[idx], R=st.R[idx], n=st.n[idx],
+                              t2=st.t2[idx])
+    precomp_c = (None if es.precomp is None
+                 else tuple(x[idx] for x in es.precomp))
+    return _Phase(idx, stats_c, precomp_c, es.ex.deg[idx], es.tau_t[idx],
+                  es.zeta_t[idx])
+
+
+def _colored_runner(
+    stats: SufficientStats, g: Graph, cfg: ConsensusConfig, *,
+    schedule=None, staleness: int = 0, order: str = "fixed",
+) -> Runner:
+    """Validate the colored-sweep arguments and build its Runner."""
+    if staleness < 0:
+        raise ValueError(f"staleness must be >= 0, got {staleness}")
+    if order not in ("fixed", "gauss_southwell"):
+        raise ValueError(
+            f"unknown order {order!r}; expected 'fixed' or 'gauss_southwell'"
+        )
+    if schedule is None:
+        schedule = g.chromatic_schedule()
+    schedule = tuple(tuple(int(t) for t in cls) for cls in schedule)
+    _validate_schedule(schedule, stats.G.shape[0])
+    if order == "gauss_southwell" and staleness != 0:
+        raise ValueError(
+            "order='gauss_southwell' requires staleness=0: with frozen "
+            "k-round-old views every phase reads the same snapshot, so "
+            "the class order cannot affect the sweep"
+        )
+    es = _edge_setup(stats, g, cfg)
+    stats = es.stats
+    m = stats.G.shape[0]
+    phases = [_make_phase(cls, es) for cls in schedule]
+    # class-edge incidence for the Gauss-Southwell scores: a proper coloring
+    # puts the two ends of an edge in two classes, so each edge scores both
+    cls_of = {t: p for p, cls in enumerate(schedule) for t in cls}
+    inc = torch.zeros((len(schedule), g.n_edges), dtype=stats.G.dtype,
+                      device=stats.G.device)
+    for j, (s, e) in enumerate(g.edges):
+        inc[cls_of[s], j] = 1.0
+        inc[cls_of[e], j] = 1.0
+
+    def sweep_order(U):
+        if order == "fixed":
+            return range(len(phases))
+        edge_sq = torch.sum(es.ex.edge_diff(U) ** 2, dim=(-2, -1))   # (E,)
+        # stable: ties (iteration 0's zero residuals) keep schedule order
+        return torch.argsort(-(inc @ edge_sq), stable=True).tolist()
+
+    def step(U, A, lam, hist):
+        U_start = U
+        # lam moves only at iteration end, so C^T lam is gathered once; the
+        # neighbor view is the live U (staleness 0, regathered per class)
+        # or the frozen snapshot from `staleness` iterations back
+        ct_lam = es.ex.ct_transpose(lam)
+        for p in sweep_order(U):
+            ph = phases[p]
+            view = U if staleness == 0 else hist[0]
+            msgs = NeighborMsgs(es.ex.neighbor_sum(view)[ph.idx],
+                                ct_lam[ph.idx], ph.deg, ph.tau, ph.zeta)
+            U_c, A_c = agent_update(ph.stats, AgentState(U[ph.idx], A[ph.idx]),
+                                    msgs, cfg, m_total=m, precomp=ph.precomp)
+            U = U.index_copy(0, ph.idx, U_c)
+            A = A.index_copy(0, ph.idx, A_c)
+        resid_old = es.ex.edge_diff(U_start)
+        resid_new = es.ex.edge_diff(U)
+        lam_new, gamma, primal = dual_step(lam, resid_old, resid_new, cfg)
+        diag = _iteration_diag(stats, cfg, U, A, lam_new, resid_new, gamma,
+                               primal)
+        if staleness > 0:
+            hist = torch.cat([hist[1:], U[None]], dim=0)
+        return U, A, lam_new, hist, diag
+
+    def init_fn():
+        U0 = es.init.U
+        return RunState(U=U0, A=es.init.A, lam=es.init.lam, k=0,
+                        hist=U0.expand((staleness,) + tuple(U0.shape)))
+
+    def segment_fn(state, n):
+        U, A, lam, hist = state.U, state.A, state.lam, state.hist
+        rows = []
+        for _ in range(n):
+            U, A, lam, hist, diag = step(U, A, lam, hist)
+            rows.append(diag)
+        return (RunState(U=U, A=A, lam=lam, k=state.k + n, hist=hist),
+                _diag_rows(rows, U))
+
+    return Runner("colored", cfg, init_fn, segment_fn)

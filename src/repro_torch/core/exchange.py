@@ -53,8 +53,8 @@ class DenseExchange:
                  device="cuda"):
         if agg is not None:
             raise NotImplementedError(
-                "robust aggregators are not ported yet: they belong to "
-                "port slice 2 (only the mean path is available)"
+                "robust aggregators are not ported yet: they come with the "
+                "netsim slice, port slice 2 (only the mean path is available)"
             )
         self.m = g.m
         self.src = torch.as_tensor([e[0] for e in g.edges], dtype=torch.int64,

@@ -22,8 +22,9 @@ def fo_dmtl_elm_fit(
     H: torch.Tensor, T: torch.Tensor, g: Graph, cfg: DMTLELMConfig,
     **fit_kw,
 ) -> tuple[DMTLELMState, dict]:
-    """Algorithm 3: :func:`dmtl_elm.fit` with ``first_order=True``; keyword
-    arguments (``executor=``, ``feature_map=``, ``use_kernel=``, ...) are
+    """Algorithm 3 on any ported executor: :func:`dmtl_elm.fit` with
+    ``first_order=True``; keyword arguments (``executor=``, ``schedule=``,
+    ``staleness=``, ``order=``, ``feature_map=``, ``use_kernel=``, ...) are
     forwarded."""
     return fit(H, T, g, dataclasses.replace(cfg, first_order=True), **fit_kw)
 

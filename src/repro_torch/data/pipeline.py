@@ -28,6 +28,7 @@ def stream_sufficient_stats(
     compensated: bool = False,
     producer: str = "materialized",
     feature_map=None,
+    quant_seed: int = 0,
 ) -> SufficientStats:
     """Fold a stream of per-agent batches into SufficientStats.
 
@@ -40,6 +41,11 @@ def stream_sufficient_stats(
     yield (X, T) with X: (m, B, d_in), and ``H = act(X W + b)`` is computed
     inside the Gram kernel.
 
+    ``precision="int8"`` (materialized only) quantizes each producer call
+    with its own rounding stream: the i-th call of the whole stream (a
+    batch, or a chunk of one) rounds with seed ``quant_seed + i``, the
+    per-chunk rule of ``accumulate_stats_chunked`` carried across batches.
+
     ``compensated=True`` carries Kahan compensation for the running G/R/t2
     totals across the WHOLE stream: each batch is reduced from zero, then
     folded in through one compensated add."""
@@ -49,24 +55,27 @@ def stream_sufficient_stats(
         return init_stats(H.shape[0], L, T.shape[-1], torch.float32,
                           device=H.device)
 
-    def reduce(start, H, T, kahan):
+    def reduce(start, H, T, kahan, seed):
         if chunk is not None and H.shape[1] > chunk:
             return accumulate_stats_chunked(
                 start, H, T, chunk, use_kernel=use_kernel,
                 precision=precision, compensated=kahan, producer=producer,
-                feature_map=feature_map)
+                feature_map=feature_map, quant_seed=seed)
         return accumulate_stats(start, H, T, use_kernel=use_kernel,
                                 precision=precision, producer=producer,
-                                feature_map=feature_map)
+                                feature_map=feature_map, quant_seed=seed)
 
     comp = None
+    seed = quant_seed
     for H, T in feature_batches:
+        batch_seed = seed
+        seed += -(-H.shape[1] // chunk) if chunk is not None else 1
         if stats is None:
             stats = empty_stats(H, T)
         if not compensated:
-            stats = reduce(stats, H, T, False)
+            stats = reduce(stats, H, T, False, batch_seed)
             continue
-        b = reduce(empty_stats(H, T), H, T, True)
+        b = reduce(empty_stats(H, T), H, T, True, batch_seed)
         t2_run = torch.as_tensor(stats.t2, dtype=torch.float32,
                                  device=b.t2.device).expand(b.t2.shape)
         if comp is None:

@@ -8,5 +8,7 @@ family, each laid out as:
 
 Kernels:
   gram  G = H^T H and R = H^T T for m agents in one launch; the triangular
-        kernel and the fused act(X W + b) producer
+        kernel, the fused act(X W + b) producer, the int8 kernel (per-tile
+        scales, int32 tile sums on the tensor cores) and the one-agent
+        dense-tile baseline
 """

@@ -2,6 +2,8 @@
 
 ``gram_tri``   replaces ``repro/kernels/gram/kernel.py::gram_pallas_tri``.
 ``gram_fused`` replaces ``repro/kernels/gram/kernel.py::gram_pallas_fused``.
+``gram_tri_q`` replaces ``repro/kernels/gram/kernel.py::gram_pallas_tri_q``.
+``gram_dense`` replaces ``repro/kernels/gram/kernel.py::gram_pallas``.
 
 A wrapper given CPU tensors returns its kernel's plain version
 (``ref.py``); given CUDA tensors it launches the kernel or raises.
@@ -17,11 +19,16 @@ from pathlib import Path
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.gram.ref import gram_fused_ref, gram_ref
+from repro_torch.kernels.gram.ref import (
+    MAX_INT8_BLOCK_N,
+    gram_fused_ref,
+    gram_ref,
+    gram_tri_q_ref,
+)
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "gram.cu"
 ACTIVATION_CODES = {"sigmoid": 0, "tanh": 1, "relu": 2, "gelu": 3}
-LAUNCHES = {"gram_tri": 0, "gram_fused": 0}
+LAUNCHES = {"gram_tri": 0, "gram_fused": 0, "gram_tri_q": 0, "gram_dense": 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -44,6 +51,12 @@ def library() -> ctypes.CDLL:
     for name in ("gram_fused_f32", "gram_fused_bf16"):
         fn = getattr(lib, name)
         fn.argtypes = [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]
+        fn.restype = _I
+    lib.gram_tri_q.argtypes = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]
+    lib.gram_tri_q.restype = _I
+    for name in ("gram_dense_f32", "gram_dense_bf16"):
+        fn = getattr(lib, name)
+        fn.argtypes = [_P, _P, _P, _P, _I, _I, _I, _P]
         fn.restype = _I
     return lib
 
@@ -151,4 +164,69 @@ def gram_fused(X: torch.Tensor, W: torch.Tensor, b: torch.Tensor,
                  G.data_ptr(), R.data_ptr(), m, N, L, D, d_in,
                  ACTIVATION_CODES[activation], stream), "gram_fused")
     LAUNCHES["gram_fused"] += 1
+    return G, R
+
+
+def gram_tri_q(Hq: torch.Tensor, scales: torch.Tensor, T: torch.Tensor, *,
+               block_n: int, block_l: int):
+    """int8 statistics for all m agents in one launch, from quantized H.
+
+    Hq: (m, N, L) int8; scales: (m, ceil(N / block_n), ceil(L / block_l))
+    fp32, one per quantization tile; T: (m, N, D) bf16.  Returns
+    (G (m, L, L) fp32, exactly symmetric, R (m, L, D) fp32).  ``block_n``
+    may be at most ``MAX_INT8_BLOCK_N`` (1040): above it an int32 tile sum
+    can exceed 2^24 and would round on its way to fp32."""
+    if not 1 <= block_n <= MAX_INT8_BLOCK_N or block_l < 1:
+        raise ValueError(
+            f"int8 Gram needs 1 <= block_n <= {MAX_INT8_BLOCK_N} (exact "
+            f"int32 -> fp32 tile sums) and block_l >= 1, got "
+            f"block_n={block_n}, block_l={block_l}"
+        )
+    if _on_cpu(Hq, scales, T):
+        return gram_tri_q_ref(Hq, scales, T, block_n, block_l)
+    _check("Hq", Hq, 3, (torch.int8,))
+    _check("scales", scales, 3, (torch.float32,))
+    _check("T", T, 3, (torch.bfloat16,))
+    m, N, L = Hq.shape
+    D = T.shape[-1]
+    want = (m, -(-N // block_n), -(-L // block_l))
+    if T.shape[:2] != (m, N) or tuple(scales.shape) != want:
+        raise ValueError(
+            f"shapes do not agree: Hq {tuple(Hq.shape)}, scales "
+            f"{tuple(scales.shape)} (want {want}), T {tuple(T.shape)}"
+        )
+    _check_sizes(m, N, L, D)
+    G = torch.empty((m, L, L), dtype=torch.float32, device=Hq.device)
+    R = torch.empty((m, L, D), dtype=torch.float32, device=Hq.device)
+    stream = torch.cuda.current_stream(Hq.device).cuda_stream
+    _raise_on(library().gram_tri_q(
+        Hq.data_ptr(), scales.data_ptr(), T.data_ptr(), G.data_ptr(),
+        R.data_ptr(), m, N, L, D, block_n, block_l, stream), "gram_tri_q")
+    LAUNCHES["gram_tri_q"] += 1
+    return G, R
+
+
+def gram_dense(H: torch.Tensor, T: torch.Tensor):
+    """The dense-tile baseline for ONE agent: every (i, j) tile pair of
+    G = H^T H computed on its own (no symmetry used), R = H^T T.
+
+    H: (N, L), T: (N, D), both fp32 or both bf16, contiguous.  Returns
+    (G (L, L) fp32, R (L, D) fp32)."""
+    if _on_cpu(H, T):
+        return gram_ref(H, T)
+    _check("H", H, 2, (torch.float32, torch.bfloat16))
+    _check("T", T, 2, (H.dtype,))
+    N, L = H.shape
+    D = T.shape[-1]
+    if T.shape[0] != N:
+        raise ValueError(f"T shape {tuple(T.shape)} does not match H {tuple(H.shape)}")
+    _check_sizes(1, N, L, D)
+    lib = library()
+    fn = lib.gram_dense_bf16 if H.dtype == torch.bfloat16 else lib.gram_dense_f32
+    G = torch.empty((L, L), dtype=torch.float32, device=H.device)
+    R = torch.empty((L, D), dtype=torch.float32, device=H.device)
+    stream = torch.cuda.current_stream(H.device).cuda_stream
+    _raise_on(fn(H.data_ptr(), T.data_ptr(), G.data_ptr(), R.data_ptr(),
+                 N, L, D, stream), "gram_dense")
+    LAUNCHES["gram_dense"] += 1
     return G, R

@@ -1,8 +1,9 @@
-"""Public Gram ops: precision casting and the choice between the CUDA
-kernels and their plain versions.
+"""Public Gram ops: precision casting, int8 tile quantization, and the choice
+between the CUDA kernels and their plain versions.
 
 ``gram``         one agent, (N, L); runs the agent-batched kernel with a
-                 singleton agent axis.
+                 singleton agent axis (``variant="dense"``: the dense-tile
+                 baseline kernel instead).
 ``gram_batched`` (m, N, L): statistics of all m agents in ONE launch of the
                  triangular kernel, which writes the full symmetric G.
 ``gram_fused``   statistics straight from raw (X, W, b, T): the hidden layer
@@ -16,8 +17,15 @@ here.
 Precision: ``"fp32"`` is IEEE fp32 throughout.  ``"bf16"`` casts H and T to
 bf16 once at the op boundary and accumulates in fp32: G/R carry a relative
 error of order 2^-8 of the accumulated magnitude (test tolerance 3e-2).
-``"int8"`` and ``variant="dense"`` are the int8 and dense-baseline kernels,
-which belong to the next port slice.
+``"int8"`` (triangular only) quantizes H per (block_n, block_l) tile with a
+maxabs/127 scale and stochastic rounding seeded by ``quant_seed`` (see
+``ref.quantize_tiles``), then runs the int8 kernel with exact int32 tile
+sums; T streams in bf16.  ``force_ref=True`` runs the emulation
+(quantize, dequantize, fp32 products) on the same draws.
+
+``block_l`` / ``block_n``: the reference's keywords.  For fp32 and bf16 they
+are tiling hints that the CUDA kernels ignore (their tile is fixed); for
+int8 they define the quantization tiles and so the result.
 """
 
 from __future__ import annotations
@@ -25,21 +33,33 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels.gram import kernel
-from repro_torch.kernels.gram.ref import gram_fused_ref, gram_ref
+from repro_torch.kernels.gram.ref import (
+    gram_fused_ref,
+    gram_ref,
+    int8_emulated_ref,
+    quant_generator,
+    quantize_dequantize,
+    quantize_tiles,
+)
 
 PRECISIONS = ("fp32", "bf16", "int8")
 FUSED_PRECISIONS = ("fp32", "bf16")
+
+
+def _round_up(x: int, mult: int) -> int:
+    return -(-x // mult) * mult
+
+
+def resolve_block_n(N: int, block_n: int) -> int:
+    """The reference's block policy: clamp to the sample count rounded up
+    to 8, then round up to a multiple of 8."""
+    return _round_up(max(8, min(block_n, _round_up(N, 8))), 8)
 
 
 def _check_precision(precision: str) -> None:
     if precision not in PRECISIONS:
         raise ValueError(
             f"unknown precision {precision!r}; expected one of {PRECISIONS}"
-        )
-    if precision == "int8":
-        raise NotImplementedError(
-            "precision='int8' (the int8 Gram kernel) is not ported yet: "
-            "it belongs to port slice 2"
         )
 
 
@@ -48,29 +68,51 @@ def _cast(H: torch.Tensor, T: torch.Tensor, precision: str):
     return H.to(dtype), T.to(dtype)
 
 
-def gram_batched(H: torch.Tensor, T: torch.Tensor, *, force_ref: bool = False,
-                 precision: str = "fp32"):
+def gram_batched(H: torch.Tensor, T: torch.Tensor, *, block_l: int = 128,
+                 block_n: int = 512, force_ref: bool = False,
+                 precision: str = "fp32", quant_seed: int = 0):
     """Per-agent (H^T H, H^T T) for all m agents.  H: (m, N, L),
     T: (m, N, D).  Returns (G (m, L, L), R (m, L, D)), both fp32."""
     _check_precision(precision)
+    if precision == "int8":
+        bn = resolve_block_n(H.shape[1], block_n)
+        if force_ref:
+            Hdq = quantize_dequantize(H, block_l=block_l, block_n=bn,
+                                      quant_seed=quant_seed)
+            return int8_emulated_ref(Hdq, T)
+        Hq, scales = quantize_tiles(H, bn, block_l,
+                                    quant_generator(quant_seed, H.device))
+        return kernel.gram_tri_q(Hq, scales, T.bfloat16().contiguous(),
+                                 block_n=bn, block_l=block_l)
     H, T = _cast(H, T, precision)
     if force_ref:
         return gram_ref(H, T)
     return kernel.gram_tri(H.contiguous(), T.contiguous())
 
 
-def gram(H: torch.Tensor, T: torch.Tensor, *, force_ref: bool = False,
-         variant: str = "tri", precision: str = "fp32"):
-    """(H^T H, H^T T) for one agent.  H: (N, L), T: (N, D)."""
-    if variant == "dense":
-        raise NotImplementedError(
-            "variant='dense' (the dense-tile baseline kernel) is not ported "
-            "yet: it belongs to port slice 2"
-        )
-    if variant != "tri":
+def gram(H: torch.Tensor, T: torch.Tensor, *, block_l: int = 128,
+         block_n: int = 512, force_ref: bool = False, variant: str = "tri",
+         precision: str = "fp32", quant_seed: int = 0):
+    """(H^T H, H^T T) for one agent.  H: (N, L), T: (N, D).
+
+    ``variant="dense"`` runs the dense-tile baseline kernel (fp32/bf16);
+    ``precision="int8"`` is triangular only."""
+    _check_precision(precision)
+    if variant not in ("tri", "dense"):
         raise ValueError(f"unknown variant {variant!r}; 'tri' or 'dense'")
-    G, R = gram_batched(H[None], T[None], force_ref=force_ref,
-                        precision=precision)
+    if variant == "dense":
+        if precision == "int8":
+            raise ValueError(
+                "precision='int8' requires variant='tri' (the dense "
+                "baseline has no int8 path)"
+            )
+        H, T = _cast(H, T, precision)
+        if force_ref:
+            return gram_ref(H, T)
+        return kernel.gram_dense(H.contiguous(), T.contiguous())
+    G, R = gram_batched(H[None], T[None], block_l=block_l, block_n=block_n,
+                        force_ref=force_ref, precision=precision,
+                        quant_seed=quant_seed)
     return G[0], R[0]
 
 

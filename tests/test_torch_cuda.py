@@ -10,7 +10,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from repro_torch.kernels.gram import kernel, ref  # noqa: E402
+from repro_torch.kernels.gram import kernel, ops, ref  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 TOL = {"fp32": 1e-4, "bf16": 3e-2}
@@ -64,6 +64,60 @@ def test_gram_fused_matches_plain(gen, m, N, d_in, L, D, activation,
     assert _rel(G, Gr) <= TOL[precision] and _rel(R, Rr) <= TOL[precision]
 
 
+@pytest.mark.parametrize("m,N,L,D,bn,bl", [
+    (1, 1, 1, 1, 8, 128),        # one row, one column
+    (2, 96, 48, 3, 32, 32),      # the reference's int8 test shape
+    (3, 1000, 300, 3, 512, 128),  # ragged: block_n does not divide N
+    (2, 520, 260, 17, 40, 32),   # block_l = 32 inside the 128 tile, D > 16
+    (1, 333, 129, 2, 1040, 64),  # the largest exact block_n
+])
+def test_gram_tri_q_matches_plain(gen, m, N, L, D, bn, bl):
+    """Same Hq/scales into both: the int32 tile products are exact, only
+    the fp32 order of R differs (G is bitwise in practice)."""
+    H = torch.randn(m, N, L, device="cuda", generator=gen) / N**0.5
+    T = torch.randn(m, N, D, device="cuda", generator=gen).bfloat16()
+    Hq, scales = ref.quantize_tiles(H, bn, bl, gen)
+    before = kernel.LAUNCHES["gram_tri_q"]
+    G, R = kernel.gram_tri_q(Hq, scales, T, block_n=bn, block_l=bl)
+    torch.cuda.synchronize()
+    Gr, Rr = ref.gram_tri_q_ref(Hq, scales, T, bn, bl)
+    assert kernel.LAUNCHES["gram_tri_q"] == before + 1
+    assert torch.equal(G, G.mT)
+    assert _rel(G, Gr) <= TOL["fp32"] and _rel(R, Rr) <= TOL["fp32"]
+
+
+@pytest.mark.parametrize("precision", ["fp32", "bf16"])
+@pytest.mark.parametrize("N,L,D", [(1, 1, 1), (1000, 300, 3), (64, 257, 20)])
+def test_gram_dense_matches_plain(gen, N, L, D, precision):
+    dtype = torch.bfloat16 if precision == "bf16" else torch.float32
+    H = torch.randn(N, L, device="cuda", generator=gen).to(dtype)
+    T = torch.randn(N, D, device="cuda", generator=gen).to(dtype)
+    before = kernel.LAUNCHES["gram_dense"]
+    G, R = kernel.gram_dense(H, T)
+    torch.cuda.synchronize()
+    Gr, Rr = ref.gram_ref(H, T)
+    assert kernel.LAUNCHES["gram_dense"] == before + 1
+    assert _rel(G, Gr) <= TOL[precision] and _rel(R, Rr) <= TOL[precision]
+
+
+def test_cuda_ops_launch_and_never_take_the_plain_version(gen):
+    """Every op on CUDA tensors counts one launch of its kernel; the int8
+    op's kernel agrees with its emulation on the same draws."""
+    H = torch.randn(2, 300, 200, device="cuda", generator=gen) / 300**0.5
+    T = torch.randn(2, 300, 3, device="cuda", generator=gen)
+    kernel.reset_launches()
+    G, R = ops.gram_batched(H, T, precision="int8", quant_seed=5)
+    Ge, Re = ops.gram_batched(H, T, precision="int8", quant_seed=5,
+                              force_ref=True)
+    ops.gram(H[0], T[0], variant="dense")
+    ops.gram(H[0], T[0], variant="dense", precision="bf16")
+    ops.gram(H[0], T[0], precision="int8", block_l=32, block_n=64)
+    torch.cuda.synchronize()
+    assert kernel.LAUNCHES == {"gram_tri": 0, "gram_fused": 0,
+                               "gram_tri_q": 2, "gram_dense": 2}
+    assert _rel(G, Ge) <= TOL["fp32"] and _rel(R, Re) <= TOL["fp32"]
+
+
 def test_cuda_wrappers_reject_what_the_kernel_does_not_take(gen):
     H = torch.randn(2, 8, 16, device="cuda", generator=gen)
     with pytest.raises(ValueError, match="dtype"):
@@ -74,3 +128,14 @@ def test_cuda_wrappers_reject_what_the_kernel_does_not_take(gen):
         kernel.gram_tri(H, H.bfloat16())
     with pytest.raises(ValueError, match="CPU or all on one CUDA"):
         kernel.gram_tri(H, H.cpu())
+    Hq = torch.zeros(2, 8, 16, dtype=torch.int8, device="cuda")
+    s = torch.ones(2, 1, 1, device="cuda")
+    T = torch.zeros(2, 8, 3, dtype=torch.bfloat16, device="cuda")
+    with pytest.raises(ValueError, match="block_n"):
+        kernel.gram_tri_q(Hq, s, T, block_n=2048, block_l=16)
+    with pytest.raises(ValueError, match="shapes do not agree"):
+        kernel.gram_tri_q(Hq, s, T, block_n=8, block_l=8)
+    with pytest.raises(ValueError, match="dtype"):
+        kernel.gram_tri_q(Hq, s, T.float(), block_n=8, block_l=16)
+    with pytest.raises(ValueError, match="2-D"):
+        kernel.gram_dense(H, H)

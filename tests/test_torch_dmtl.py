@@ -151,10 +151,13 @@ def test_fo_dmtl_and_lipschitz_match_reference():
 
 
 def test_fit_rejects_what_later_slices_bring():
+    """executor="colored" came with slice 2 (tested below); the rest still
+    raises, and the colored-only keywords are refused elsewhere with the
+    reference's messages."""
     H = torch.ones(4, 6, 5)
     T = torch.ones(4, 6, 1)
     g, cfg = tg.ring(4), te.ConsensusConfig(r=2, iters=1)
-    for kw in (dict(executor="colored"), dict(executor="async"),
+    for kw in (dict(executor="async"),
                dict(checkpoint_dir="ck"), dict(telemetry=True),
                dict(trace_dir="tr"), dict(health=True)):
         with pytest.raises(NotImplementedError, match="slice 2"):
@@ -167,6 +170,86 @@ def test_fit_rejects_what_later_slices_bring():
         td.fit(H, T, g, dataclasses.replace(cfg, stats_producer="fused"))
     with pytest.raises(NotImplementedError, match="slice 2"):
         td.fit(H, T, g, dataclasses.replace(cfg, aggregator="krum_like"))
+    for kw, match in ((dict(staleness=1), "staleness= only applies"),
+                      (dict(order="gauss_southwell"), "order= only applies"),
+                      (dict(schedule=((0, 1), (2, 3))),
+                       "schedule= only applies")):
+        with pytest.raises(ValueError, match=match):
+            td.fit(H, T, g, cfg, **kw)
+        with pytest.raises(ValueError, match=match):
+            jd.fit(jnp.ones((4, 6, 5)), jnp.ones((4, 6, 1)), jg.ring(4),
+                   je.ConsensusConfig(r=2, iters=1), **kw)
+
+
+@pytest.mark.parametrize("order,staleness", [("fixed", 0),
+                                             ("gauss_southwell", 0),
+                                             ("fixed", 2)])
+def test_fit_colored_executor_matches_reference(order, staleness):
+    """``fit(executor="colored")`` and FO through it, r = 1, against the
+    reference's entry points at 1e-4."""
+    H, T, _, _ = _regression(m=5)
+    kw = dict(r=1, mu1=0.1, mu2=0.1, tau=8.0, zeta=1.0, iters=8)
+    ex = dict(executor="colored", order=order, staleness=staleness)
+    stj, dj = jd.fit(jnp.asarray(H), jnp.asarray(T), jg.paper_fig2a(),
+                     je.ConsensusConfig(**kw), **ex)
+    stt, dt = td.fit(_t(H), _t(T), tg.paper_fig2a(), te.ConsensusConfig(**kw),
+                     **ex)
+    for a, b in zip(stt, stj):
+        _close(a, b, rtol=1e-4, atol=1e-4)
+    for k in dj:
+        _close(dt[k], dj[k], rtol=1e-4, atol=1e-5)
+    fj, _ = jfo.fo_dmtl_elm_fit(jnp.asarray(H), jnp.asarray(T),
+                                jg.paper_fig2a(), je.ConsensusConfig(**kw),
+                                **ex)
+    ft, _ = tfo.fo_dmtl_elm_fit(_t(H), _t(T), tg.paper_fig2a(),
+                                te.ConsensusConfig(**kw), **ex)
+    _close(ft.U @ ft.A, np.asarray(fj.U @ fj.A), rtol=1e-4, atol=1e-4)
+
+
+def test_fit_with_int8_stats():
+    """``cfg.stats_precision="int8"`` runs the int8 stream (seed 0) in the
+    stats pass: the fit equals fit_dense on the port's own int8 stats, and
+    lands within 5% of the fp32 fit's objective (the reference's draws
+    cannot be replayed, so its int8 fit is compared the same way)."""
+    H, T, _, _ = _regression(m=5)
+    kw = dict(r=1, mu1=0.1, mu2=0.1, tau=8.0, zeta=1.0, iters=20)
+    cfg8 = te.ConsensusConfig(stats_precision="int8", **kw)
+    st8, d8 = td.fit(_t(H), _t(T), tg.ring(5), cfg8)
+    ref8, _ = te.fit_dense(te.sufficient_stats(_t(H), _t(T),
+                                               precision="int8"),
+                           tg.ring(5), cfg8)
+    assert torch.equal(st8.U, ref8.U)
+    _, d32 = td.fit(_t(H), _t(T), tg.ring(5), te.ConsensusConfig(**kw))
+    _, dj8 = jd.fit(jnp.asarray(H), jnp.asarray(T), jg.ring(5),
+                    je.ConsensusConfig(stats_precision="int8", **kw))
+    for obj in (d8["objective"][-1], float(dj8["objective"][-1])):
+        np.testing.assert_allclose(float(obj), float(d32["objective"][-1]),
+                                   rtol=5e-2)
+    gs8, _ = td.fit(_t(H), _t(T), tg.ring(5), cfg8, executor="colored")
+    assert torch.isfinite(gs8.U).all()
+
+
+def test_stream_int8_seeds_each_producer_call():
+    """The i-th producer call of an int8 stream (a batch, or a chunk of
+    one) rounds with quant_seed + i."""
+    rng = np.random.default_rng(5)
+    batches = [(_t(rng.standard_normal((2, B, 12)).astype(np.float32) / 4),
+                _t(rng.standard_normal((2, B, 2)).astype(np.float32)))
+               for B in (10, 7)]
+    st = tpipe.stream_sufficient_stats(batches, chunk=4, precision="int8",
+                                       quant_seed=3)
+    base = te.init_stats(2, 12, 2, device="cpu")
+    b0 = te.accumulate_stats_chunked(base, *batches[0], 4, precision="int8",
+                                     quant_seed=3)       # calls 3, 4, 5
+    want = te.accumulate_stats_chunked(b0, *batches[1], 4, precision="int8",
+                                       quant_seed=6)     # calls 6, 7
+    assert torch.equal(st.G, want.G) and torch.equal(st.R, want.R)
+    one = tpipe.stream_sufficient_stats(batches, precision="int8",
+                                        quant_seed=3)
+    want = te.accumulate_stats(te.accumulate_stats(
+        base, *batches[0], precision="int8", quant_seed=3),
+        *batches[1], precision="int8", quant_seed=4)
+    assert torch.equal(one.G, want.G)
 
 
 @pytest.mark.parametrize("compensated", [False, True])

@@ -103,8 +103,41 @@ def test_produce_stats_validation():
     with pytest.raises(ValueError, match="int8"):
         te.produce_stats(H, T, producer="fused", feature_map=fm,
                          precision="int8")
-    with pytest.raises(NotImplementedError, match="slice 2"):
-        te.produce_stats(H, T, precision="int8")
+    # int8 is the materialized stream (ported in slice 2)
+    st = te.produce_stats(H, T, precision="int8")
+    assert st.G.shape == (2, 3, 3) and st.R.shape == (2, 3, 1)
+
+
+@pytest.mark.parametrize("use_kernel", [True, False])
+@pytest.mark.parametrize("B,chunk", [(24, 8), (29, 8)])
+def test_int8_chunked_stream_uses_per_chunk_seeds(B, chunk, use_kernel):
+    """int8 chunk c rounds with quant_seed + c and the ragged tail with
+    quant_seed + k, as the reference's accumulate_stats_chunked: the fold
+    equals the port's own one-shot calls on those seeds, added in order."""
+    rng = np.random.default_rng(B)
+    H = rng.standard_normal((3, B, 12)).astype(np.float32) / 4
+    T = rng.standard_normal((3, B, 2)).astype(np.float32)
+    seed, k = 5, B // chunk
+    st = te.accumulate_stats_chunked(
+        te.init_stats(3, 12, 2, device="cpu"), _t(H), _t(T), chunk,
+        precision="int8", quant_seed=seed, use_kernel=use_kernel)
+    G = torch.zeros(3, 12, 12)
+    R = torch.zeros(3, 12, 2)
+    bounds = [(c * chunk, (c + 1) * chunk, seed + c) for c in range(k)]
+    if B > k * chunk:
+        bounds.append((k * chunk, B, seed + k))
+    for lo, hi, s in bounds:
+        b = te.sufficient_stats(_t(H[:, lo:hi]), _t(T[:, lo:hi]),
+                                precision="int8", quant_seed=s,
+                                use_kernel=use_kernel)
+        G, R = G + b.G, R + b.R
+    assert torch.equal(st.G, G) and torch.equal(st.R, R)
+    assert float(st.n[0]) == B
+    # a different base seed is a different rounding stream
+    other = te.accumulate_stats_chunked(
+        te.init_stats(3, 12, 2, device="cpu"), _t(H), _t(T), chunk,
+        precision="int8", quant_seed=seed + 1, use_kernel=use_kernel)
+    assert not torch.equal(other.G, st.G)
 
 
 @pytest.mark.parametrize("compensated", [False, True])

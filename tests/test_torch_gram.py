@@ -7,6 +7,13 @@ versions of the CUDA kernels.  Inputs are numpy draws from a seed.
 
 Tolerances: fp32 Gram 2e-4 (``TOL`` of tests/test_kernels.py), fused fp32
 1e-5 (as test_gram_fused_2d_matches_oracle), bf16 3e-2.
+
+int8: the reference draws its rounding uniforms from ``jax.random``, which
+torch cannot replay, so the kernel's plain version is held against the
+reference's kernel on the reference's own Hq/scales (atol 2e-5, as
+test_gram_int8_pallas_matches_emulation), the rounding is held bitwise on
+the reference's uniforms, and the port's own draws by the envelope (5e-2
+of the fp32 Gram) and by unbiasedness over seeds.
 """
 
 import numpy as np
@@ -14,10 +21,13 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
+from repro.kernels.gram import kernel as jkernel  # noqa: E402
 from repro.kernels.gram import ops as jops  # noqa: E402
 from repro.kernels.gram import ref as jref  # noqa: E402
+from repro_torch import convert  # noqa: E402
 from repro_torch.core import elm as telm  # noqa: E402
 from repro_torch.kernels.gram import kernel as tkernel  # noqa: E402
 from repro_torch.kernels.gram import ops as tops  # noqa: E402
@@ -112,13 +122,19 @@ def test_activations_match_reference(activation, x):
 
 
 def test_int8_and_dense_variant_name_the_later_slice():
+    """Slice 2 brought both: int8 and the dense variant run (shapes here),
+    int8 on the dense variant raises as in the reference, and the fused
+    producer still refuses int8."""
     H, T = (torch.ones(4, 8), torch.ones(4, 2))
-    with pytest.raises(NotImplementedError, match="slice 2"):
-        tops.gram(H, T, precision="int8")
-    with pytest.raises(NotImplementedError, match="slice 2"):
-        tops.gram_batched(H[None], T[None], precision="int8")
-    with pytest.raises(NotImplementedError, match="slice 2"):
-        tops.gram(H, T, variant="dense")
+    assert tops.gram(H, T, precision="int8")[0].shape == (8, 8)
+    assert tops.gram_batched(H[None], T[None], precision="int8")[1].shape \
+        == (1, 8, 2)
+    assert tops.gram(H, T, variant="dense")[0].shape == (8, 8)
+    with pytest.raises(ValueError, match="tri"):
+        tops.gram(H, T, precision="int8", variant="dense")
+    with pytest.raises(ValueError, match="tri"):
+        jops.gram(jnp.ones((4, 8)), jnp.ones((4, 2)), precision="int8",
+                  variant="dense")
     with pytest.raises(ValueError, match="int8"):
         tops.gram_fused(H, torch.ones(8, 16), torch.ones(16), T,
                         precision="int8")
@@ -137,7 +153,15 @@ def test_cpu_tensors_take_the_plain_version_and_count_no_launch():
     G, R = tkernel.gram_fused(X, W, b, T, "tanh")
     Gr, Rr = tref.gram_fused_ref(X, W, b, T, "tanh")
     assert torch.equal(G, Gr) and torch.equal(R, Rr)
-    assert tkernel.LAUNCHES == {"gram_tri": 0, "gram_fused": 0}
+    G, R = tkernel.gram_dense(H[0], T[0])
+    Gr, Rr = tref.gram_ref(H[0], T[0])
+    assert torch.equal(G, Gr) and torch.equal(R, Rr)
+    Hq, s = tref.quantize_tiles(H, 8, 16, torch.Generator().manual_seed(0))
+    G, R = tkernel.gram_tri_q(Hq, s, T.bfloat16(), block_n=8, block_l=16)
+    Gr, Rr = tref.gram_tri_q_ref(Hq, s, T, 8, 16)
+    assert torch.equal(G, Gr) and torch.equal(R, Rr)
+    assert tkernel.LAUNCHES == {"gram_tri": 0, "gram_fused": 0,
+                                "gram_tri_q": 0, "gram_dense": 0}
 
 
 def test_mixed_devices_raise():
@@ -145,3 +169,177 @@ def test_mixed_devices_raise():
     T = torch.ones(1, 4, 2, device="meta")
     with pytest.raises(ValueError, match="CPU or all on one CUDA"):
         tkernel.gram_tri(H, T)
+
+
+# ------------------------------------------------------------ int8 stream
+
+
+def _ref_quantized(H, bn, bl, seed):
+    """The reference's quantization of H (m, N, L) at its padded layout:
+    (Hq, scales, u) as numpy, u being the uniforms it drew."""
+    m, N, L = H.shape
+    Hp = jnp.pad(jnp.asarray(H), ((0, 0), (0, (-N) % bn), (0, (-L) % bl)))
+    Hq, scales = jops.quantize_tiles(Hp, bn, bl, seed)
+    nn, nl = Hp.shape[1] // bn, Hp.shape[2] // bl
+    u = jax.random.uniform(jax.random.PRNGKey(jnp.asarray(seed, jnp.uint32)),
+                           (m, nn, bn, nl, bl))
+    return np.asarray(Hq), np.asarray(scales), np.asarray(u)
+
+
+@pytest.mark.parametrize("m,N,L,bn,bl,seed", [
+    (2, 96, 48, 32, 32, 7), (1, 33, 40, 16, 16, 3), (3, 20, 24, 8, 16, 0),
+])
+def test_round_tiles_reproduces_reference_quantization(m, N, L, bn, bl, seed):
+    """On the reference's own uniforms, the port's tiles, scales and
+    rounding give the reference's Hq and scales bit for bit, padding
+    included."""
+    H, = _draw(seed + N, (m, N, L), scale=1.0 / np.sqrt(N))
+    Hq_j, s_j, u = _ref_quantized(H, bn, bl, seed)
+    x, s_t = tref._tiles(torch.from_numpy(H), bn, bl)
+    q = tref._round_tiles(x, torch.from_numpy(u.copy()))
+    np.testing.assert_array_equal(s_t.numpy(), s_j)
+    np.testing.assert_array_equal(q.reshape(Hq_j.shape).numpy(), Hq_j)
+    assert q.dtype == torch.int8
+
+
+@pytest.mark.parametrize("m,N,L,bn,bl", [(2, 96, 48, 32, 32),
+                                          (1, 33, 40, 16, 16)])
+def test_gram_tri_q_ref_matches_reference_kernel(m, N, L, bn, bl):
+    """The plain version of the int8 kernel against the reference's
+    ``gram_pallas_tri_q`` (interpret mode) on the reference's Hq/scales:
+    the tile products are exact, only the fp32 order differs."""
+    H, T = _draw(11, (m, N, L), (m, N, 3))
+    H /= np.sqrt(N)
+    Hq, scales, _ = _ref_quantized(H, bn, bl, 5)
+    Tp = jnp.pad(jnp.asarray(T), ((0, 0), (0, (-N) % bn), (0, 0)))
+    Gj, Rj = jkernel.gram_pallas_tri_q(
+        jnp.asarray(Hq), jnp.asarray(scales), Tp.astype(jnp.bfloat16),
+        block_l=bl, block_n=bn, interpret=True)
+    Hq_t, s_t = convert.quantized_from_numpy(Hq[:, :N, :L], scales,
+                                             device="cpu")
+    Gt, Rt = tref.gram_tri_q_ref(Hq_t, s_t, torch.from_numpy(T), bn, bl)
+    np.testing.assert_allclose(Gt.numpy(), np.asarray(Gj)[:, :L, :L],
+                               atol=2e-5, rtol=0)
+    np.testing.assert_allclose(Rt.numpy(), np.asarray(Rj)[:, :L],
+                               atol=2e-5, rtol=0)
+    assert torch.equal(Gt, Gt.mT)
+    Gk, Rk = tkernel.gram_tri_q(Hq_t, s_t, torch.from_numpy(T).bfloat16(),
+                                block_n=bn, block_l=bl)
+    assert torch.equal(Gk, Gt) and torch.equal(Rk, Rt)
+
+
+@pytest.mark.parametrize("N,L", [(96, 48), (33, 40)])
+def test_gram_int8_within_quantization_envelope(N, L):
+    """The port's own draws: within 5e-2 of the fp32 Gram's max, as the
+    reference's test_gram_int8_within_quantization_envelope."""
+    H, T = _draw(N + L, (1, N, L), (1, N, 3))
+    H /= np.sqrt(N)
+    Gq, Rq = tops.gram_batched(torch.from_numpy(H), torch.from_numpy(T),
+                               block_l=32, block_n=32, precision="int8")
+    Gr, Rr = tref.gram_ref(torch.from_numpy(H), torch.from_numpy(T))
+    assert float((Gq - Gr).abs().max()) <= 5e-2 * float(Gr.abs().max())
+    assert float((Rq - Rr).abs().max()) <= 5e-2 * float(Rr.abs().max())
+
+
+def test_gram_int8_stochastic_rounding_unbiased():
+    """Averaged over 32 seeds the int8 Gram closes on the fp32 truth: the
+    mean's error is below half the mean single-seed error."""
+    H, T = _draw(11, (1, 64, 32), (1, 64, 2))
+    H /= 8.0
+    Gr, _ = tref.gram_ref(torch.from_numpy(H), torch.from_numpy(T))
+    gs = [tops.gram_batched(torch.from_numpy(H), torch.from_numpy(T),
+                            block_l=16, block_n=32, precision="int8",
+                            quant_seed=s, force_ref=True)[0]
+          for s in range(32)]
+    single = [float((g - Gr).abs().max()) for g in gs]
+    mean_err = float((sum(gs) / len(gs) - Gr).abs().max())
+    assert mean_err < 0.5 * (sum(single) / len(single)), (mean_err, single)
+
+
+def test_quantize_padding_is_exact_zero():
+    """Zero input quantizes to exact zeros, and the padding rows/columns of
+    a ragged H stay exact zeros in the tile layout for any uniforms."""
+    Hdq = tref.quantize_dequantize(torch.zeros(1, 20, 24), block_l=16,
+                                   block_n=16, quant_seed=0)
+    assert torch.equal(Hdq, torch.zeros(1, 20, 24))
+    H, = _draw(2, (2, 20, 24))
+    x, _ = tref._tiles(torch.from_numpy(H), 16, 16)
+    q = tref._round_tiles(x, torch.full(x.shape, 0.999999)).reshape(2, 32, 32)
+    assert not q[:, 20:].any() and not q[:, :, 24:].any()
+    assert q[:, :20, :24].abs().max() == 127
+
+
+def test_int8_kernel_path_matches_emulation_on_same_draws():
+    """The int8 op and its ``force_ref`` emulation draw the same uniforms
+    from ``quant_seed``: the same quantized H, fp32 order apart."""
+    H, T = _draw(4, (2, 50, 36), (2, 50, 3))
+    H /= np.sqrt(50)
+    args = (torch.from_numpy(H), torch.from_numpy(T))
+    G, R = tops.gram_batched(*args, block_l=16, block_n=24, quant_seed=9,
+                             precision="int8")
+    Ge, Re = tops.gram_batched(*args, block_l=16, block_n=24, quant_seed=9,
+                               precision="int8", force_ref=True)
+    np.testing.assert_allclose(G.numpy(), Ge.numpy(), atol=2e-5, rtol=0)
+    np.testing.assert_allclose(R.numpy(), Re.numpy(), atol=2e-5, rtol=0)
+    G2, _ = tops.gram(args[0][0], args[1][0], block_l=16, block_n=24,
+                      quant_seed=9, precision="int8")
+    assert G2.shape == (36, 36)
+    G3, _ = tops.gram_batched(*args, block_l=16, block_n=24, quant_seed=10,
+                              precision="int8")
+    assert not torch.equal(G3, G)
+
+
+@pytest.mark.parametrize("N,block_n", [(1, 512), (7, 512), (9, 4), (100, 30),
+                                       (5000, 512), (96, 32)])
+def test_resolve_block_n_matches_reference(N, block_n):
+    assert tops.resolve_block_n(N, block_n) == jops.resolve_block_n(N,
+                                                                    block_n)
+
+
+def test_int8_block_n_limit_raises():
+    """int32 tile sums are exact in fp32 only up to block_n = 1040."""
+    assert tref.MAX_INT8_BLOCK_N == 1040
+    H = torch.ones(1, 2048, 8)
+    with pytest.raises(ValueError, match="block_n"):
+        tops.gram_batched(H, torch.ones(1, 2048, 1), block_n=2048,
+                          precision="int8")
+    tops.gram_batched(H, torch.ones(1, 2048, 1), block_n=1040,
+                      precision="int8")
+
+
+@pytest.mark.parametrize("precision", ["fp32", "bf16"])
+@pytest.mark.parametrize("N,L,D", [(40, 70, 3), (9, 129, 2)])
+def test_gram_dense_variant_matches_reference(N, L, D, precision):
+    """``variant="dense"`` (the dense-tile baseline) against the
+    reference's Pallas baseline in interpret mode."""
+    H, T = _draw(N * L, (N, L), (N, D))
+    Gt, Rt = tops.gram(torch.from_numpy(H), torch.from_numpy(T),
+                       variant="dense", precision=precision)
+    Gj, Rj = jops.gram(jnp.asarray(H), jnp.asarray(T), variant="dense",
+                       precision=precision, block_l=32, block_n=16)
+    np.testing.assert_allclose(_np(Gt), np.asarray(Gj), **TOL[precision])
+    np.testing.assert_allclose(_np(Rt), np.asarray(Rj), **TOL[precision])
+    Gf, _ = tops.gram(torch.from_numpy(H), torch.from_numpy(T),
+                      variant="dense", precision=precision, force_ref=True)
+    assert torch.equal(Gf, Gt)
+
+
+def test_fp32_block_keywords_are_tiling_hints():
+    """The reference's block_l/block_n keywords are accepted; for fp32 and
+    bf16 they do not change the result."""
+    H, T = map(torch.from_numpy, _draw(6, (2, 30, 20), (2, 30, 2)))
+    G, R = tops.gram_batched(H, T)
+    for kw in (dict(block_l=32, block_n=8), dict(block_l=16, block_n=64)):
+        G2, R2 = tops.gram_batched(H, T, **kw)
+        assert torch.equal(G2, G) and torch.equal(R2, R)
+        assert torch.equal(tops.gram(H[0], T[0], **kw)[0], G[0])
+
+
+def test_quantized_from_numpy():
+    q = np.array([[[-127, 0], [5, 127]]], np.int8)
+    Hq, s = convert.quantized_from_numpy(q, np.ones((1, 1, 1)), device="cpu")
+    assert Hq.dtype == torch.int8 and s.dtype == torch.float32
+    np.testing.assert_array_equal(Hq.numpy(), q)
+    with pytest.raises(ValueError, match="int8"):
+        convert.quantized_from_numpy(q.astype(np.int32), np.ones((1, 1, 1)),
+                                     device="cpu")

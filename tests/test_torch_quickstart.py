@@ -2,8 +2,8 @@
 
 The quickstart's default mode runs on identical numpy inputs (the
 reference's own quickstart data) through both packages, the consensus fits
-from the same tilted start: the four test MSEs agree within 1e-3
-relative.
+from the same tilted start: the five test MSEs (Gauss-Seidel included)
+agree within 1e-3 relative.
 """
 
 import dataclasses
@@ -57,10 +57,10 @@ def quickstart_both():
     cfg = je.ConsensusConfig(r=r, mu1=mu, mu2=mu, tau=1.0, zeta=1.0,
                              iters=2000)
 
-    def from_tilted_start(c):
+    def from_tilted_start(c, executor="dense"):
         # the port quickstart's start (quickstart.tilted_start), built here
         # for the reference's runner
-        runner = je.make_runner(stats, jg.ring(8), c)
+        runner = je.make_runner(stats, jg.ring(8), c, executor=executor)
         s0 = runner.init_state()
         L = s0.U.shape[-2]
         ramp = (np.linspace(-1.0, 1.0, L, dtype=np.float32)[:, None]
@@ -69,11 +69,14 @@ def quickstart_both():
 
     std = from_tilted_start(cfg)
     stf = from_tilted_start(dataclasses.replace(cfg, first_order=True))
+    stg = from_tilted_start(dataclasses.replace(cfg, gamma_floor=0.05),
+                            executor="colored")
     ref = {
         "local": mse(jnp.einsum("mnl,mld->mnd", Hte, betas)),
         "mtl": mse(jnp.einsum("mnl,lr,mrd->mnd", Hte, stm.U, stm.A)),
         "dmtl": mse(jnp.einsum("mnl,mlr,mrd->mnd", Hte, std.U, std.A)),
         "fo": mse(jnp.einsum("mnl,mlr,mrd->mnd", Hte, stf.U, stf.A)),
+        "gs": mse(jnp.einsum("mnl,mlr,mrd->mnd", Hte, stg.U, stg.A)),
     }
     ours = quickstart.run(*(_t(x) for x in (H_tr, T_tr, H_te, T_te)), r=r,
                           mu=mu)
@@ -81,11 +84,14 @@ def quickstart_both():
 
 
 def test_quickstart_flow_matches_reference(quickstart_both):
-    """Local, MTL, DMTL and FO test MSEs within 1e-3 relative of the
-    reference's (the consensus fits from the same tilted start);
-    multi-task sharing beats local training."""
+    """Local, MTL, DMTL, FO and Gauss-Seidel test MSEs within 1e-3
+    relative of the reference's (the consensus fits from the same tilted
+    start); MTL and DMTL beat local training.  On this data the
+    Gauss-Seidel fit from the tilted start ends just above Local ELM in
+    both packages (0.0451 against 0.0444), so its own check is the port
+    quickstart's, on the port's data (test_quickstart_main_runs_on_cpu)."""
     ref, ours = quickstart_both
-    for k in ("local", "mtl", "dmtl", "fo"):
+    for k in ("local", "mtl", "dmtl", "fo", "gs"):
         np.testing.assert_allclose(ours[k], ref[k], rtol=1e-3, err_msg=k)
     assert ours["mtl"] < ours["local"] and ours["dmtl"] < ours["local"]
 
@@ -115,9 +121,12 @@ def test_symmetric_start_leaves_rank_one_only_through_roundoff():
 
 
 def test_quickstart_main_runs_on_cpu(capsys):
+    """The port's quickstart on its own data; ``main`` asserts that MTL,
+    DMTL and Gauss-Seidel all beat Local ELM."""
     res = quickstart.main(device="cpu")
     assert "beats local training" in capsys.readouterr().out
-    assert np.isfinite(list(res.values())[:4]).all()
+    assert np.isfinite([res[k] for k in ("local", "mtl", "dmtl", "fo",
+                                         "gs")]).all()
 
 
 def test_convert_round_trips():
