@@ -5,19 +5,23 @@ Run from the repository root:  python3 chip_smoke.py
 
 Phases (any failure raises and the script exits non-zero):
   1. environment: the card, torch/CUDA versions, TF32 switched off;
-  2. build: nvcc compiles the Gram kernels from ``src/repro_torch``;
+  2. build: nvcc compiles the Gram, sliding-window attention and RG-LRU
+     kernels from ``src/repro_torch``, one nvcc per source, all at once;
   3. kernels: each CUDA kernel against its plain PyTorch version at the
      main path's shape, the full backbone shape (m=8, N=8192, L=2048, D=8,
      d_in=256) and a ragged shape (m=3, N=1000, L=300, D=3, d_in=70), in
      fp32 and bf16 (``gram_tri_q``: int8 from one Hq/scales per case,
      block_l 128 and 32, its quantization pass timed apart;
      ``gram_dense``: one agent); G must be exactly symmetric (all but the
-     dense baseline); times of the kernel, the plain version and one
-     library call;
+     dense baseline); ``swa`` at phase 6's shape, recurrentgemma-2b's and
+     h2o-danube's at S = 8192, and a ragged one, also held in norm
+     (``SWA_NORM_TOL``); ``rglru`` at phase 6's
+     shape and a ragged one with h0 != 0; times of the kernel, the plain
+     version and one library call;
   4. main path at full width: 8 agents, 8192 samples of 256 features each,
      an L=2048 hidden layer; the fused stats stream (``gram_fused``), the
      materialized stream (``gram_tri``), DMTL-ELM by consensus ADMM on a
-     ring, FO-DMTL-ELM, MTL-ELM, and the same DMTL fit from the kernels'
+     ring (each PCG solve's steps recorded), FO-DMTL-ELM, MTL-ELM, and the same DMTL fit from the kernels'
      plain versions; then, each with its own launch counts, the int8
      stream (``gram_tri_q``) and a DMTL fit from it, the colored
      Gauss-Seidel fit (at r = 1 its trajectory held against the same
@@ -27,7 +31,15 @@ Phases (any failure raises and the script exits non-zero):
      fits to 32 iterations at r = 8 and r = 1, their objective gaps read
      at 8, 16 and 32;
   5. the quickstart's small default mode on the card, Gauss-Seidel line
-     included.
+     included;
+  6. the backbone route at full recurrentgemma-2b width (26 layers, bf16
+     compute, fp32 weights from a seeded generator): 4 agents, 2 batches of
+     8 x 4096 tokens each, pooled features into fused L = 2048 statistics,
+     DMTL-ELM on ring(4), held-out accuracy; every ``swa`` and ``rglru``
+     block launched its kernel; the features against the kernels' plain
+     versions in bf16 (3e-2 of max |plain|, 3e-3 in norm) and, on one
+     sequence, in fp32 (1e-3); each PCG solve's step count recorded;
+  7. the backbone example as written (``repro_torch.backbone.main``).
 
 The last three lines of standard output are the ``{"kernels": ...}`` JSON
 line, the card's name and power limit from nvidia-smi, and
@@ -38,6 +50,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+from concurrent.futures import ThreadPoolExecutor
 import math
 import statistics
 import subprocess
@@ -50,6 +63,13 @@ PEAK_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = {"fp32": 67e12, "bf16": 989e12, "int8": 1979e12}
 # int8: the tile products are exact, only the fp32 order differs
 TOL = {"fp32": 1e-4, "bf16": 3e-2, "int8": 1e-4}
+# swa is held in norm too: its max |plain| comes from early rows with few
+# live keys (row 0's output is v_0), whose entries are ~W^1/2 larger than
+# those of rows with a full window, so the max-based limit alone is loose
+# there.  bf16: 2^-9, the unit roundoff of the bf16 output.
+SWA_NORM_TOL = {"fp32": 1e-5, "bf16": 2e-3}
+# phase 6's bf16 pooled features, kernels against plain versions, in norm
+FEATURE_NORM_TOL = 3e-3
 H_BYTES = {"fp32": 4, "bf16": 2, "int8": 1}
 REPEATS = 7
 
@@ -98,6 +118,24 @@ def rel_err(torch, got, want) -> tuple[float, float]:
     return diff, diff / max(float(want.abs().max()), 1e-30)
 
 
+def norm_rel(torch, got, want) -> float:
+    """||got - want|| / ||want|| over all entries, in fp32."""
+    got, want = got.float(), want.float()
+    return float(torch.linalg.vector_norm(got - want)
+                 / max(float(torch.linalg.vector_norm(want)), 1e-30))
+
+
+def counted_pcg(solvers, steps: list):
+    """The engine's ``pcg`` U-solve (Jacobi-preconditioned CG, the same
+    calls), appending each solve's steps per agent to ``steps``."""
+    def solve(G, M, rhs, c, precomp=None):
+        U, n = solvers.sum_sylvester_cg(G.unsqueeze(-3), M.unsqueeze(-3), rhs,
+                                        c, precond="jacobi", return_info=True)
+        steps.append(n.tolist())
+        return U
+    return solve
+
+
 def gram_cost(kind, m, N, L, D, d_in, precision, n_scales=0):
     """(bytes, bound ms, bound_by, recomputed hidden-layer flops): every
     input read once, every output written once; the useful flops of the
@@ -126,6 +164,104 @@ def gram_cost(kind, m, N, L, D, d_in, precision, n_scales=0):
     byte_ms = nbytes / PEAK_BYTES_PER_S * 1e3
     bound_by = "bytes" if byte_ms > op_ms else "operations"
     return nbytes, max(byte_ms, op_ms), bound_by, recompute
+
+
+def swa_cost(B, H, KV, S, D, W, precision):
+    """(bytes, bound ms, bound_by): q, k, v read once and o written once,
+    against 4 D flops (Q K^T and P V) per live (query, key) pair, at the
+    rate of the inputs' precision."""
+    live = W * (W + 1) // 2 + (S - W) * W if S > W else S * (S + 1) // 2
+    ops = 4 * B * H * D * live
+    nbytes = H_BYTES[precision] * (2 * B * H * S * D + 2 * B * KV * S * D)
+    byte_ms = nbytes / PEAK_BYTES_PER_S * 1e3
+    op_ms = ops / PEAK_OPS_PER_S[precision] * 1e3
+    return nbytes, max(byte_ms, op_ms), "bytes" if byte_ms > op_ms else \
+        "operations"
+
+
+def rglru_cost(B, S, D):
+    """(bytes, bound ms, bound_by): log_a and b read, h written, h0 read,
+    all fp32; 3 flops and an exp per element are far below the byte
+    time."""
+    nbytes = 4 * (3 * B * S * D + B * D)
+    return nbytes, nbytes / PEAK_BYTES_PER_S * 1e3, "bytes"
+
+
+def swa_case(torch, swa_kernel, swa_ref, shape, precision, gen, label):
+    """The swa kernel against its plain version (the full masked softmax),
+    timed beside it and one ``scaled_dot_product_attention`` with the band
+    mask (timed only; the port never calls it)."""
+    B, H, KV, S, D, W = shape
+    dtype = torch.bfloat16 if precision == "bf16" else torch.float32
+    q = torch.randn(B, H, S, D, device="cuda", generator=gen).to(dtype)
+    k = torch.randn(B, KV, S, D, device="cuda", generator=gen).to(dtype)
+    v = torch.randn(B, KV, S, D, device="cuda", generator=gen).to(dtype)
+    i = torch.arange(S, device="cuda")
+    band = (i[None, :] <= i[:, None]) & (i[:, None] - i[None, :] < W)
+
+    def run():
+        return swa_kernel.swa(q, k, v, W)
+
+    def plain():
+        return swa_ref(q, k, v, W)
+
+    def library():
+        return torch.nn.functional.scaled_dot_product_attention(
+            q, k, v, attn_mask=band, scale=D ** -0.5, enable_gqa=True)
+
+    o = run()
+    torch.cuda.synchronize()
+    op = plain()
+    check(bool(torch.isfinite(o.float()).all()), f"swa {label}: non-finite")
+    abs_e, rel_e = rel_err(torch, o.float(), op.float())
+    norm_e = norm_rel(torch, o, op)
+    check(rel_e <= TOL[precision], f"swa {label} {precision}: relative "
+          f"error {rel_e:.3g} above {TOL[precision]}")
+    check(norm_e <= SWA_NORM_TOL[precision], f"swa {label} {precision}: "
+          f"norm-relative error {norm_e:.3g} above {SWA_NORM_TOL[precision]}")
+    del o, op
+    nbytes, bound_ms, bound_by = swa_cost(B, H, KV, S, D, W, precision)
+    case = {"case": label, "dtype": precision,
+            "shape": {"B": B, "H": H, "KV": KV, "S": S, "D": D, "W": W},
+            "max_abs_err": abs_e, "rel_err": rel_e, "tol": TOL[precision],
+            "norm_rel_err": norm_e, "norm_tol": SWA_NORM_TOL[precision],
+            "kernel_ms": time_ms(torch, run), "plain_ms": time_ms(torch, plain),
+            "library_ms": time_ms(torch, library), "bound_ms": bound_ms,
+            "bound_by": bound_by, "bytes": nbytes}
+    torch.cuda.empty_cache()
+    return case
+
+
+def rglru_case(torch, rglru_kernel, rglru_ref, shape, gen, label, h0_zero):
+    """The rglru kernel against its plain version (a loop over time).  No
+    single PyTorch call computes a linear recurrence: library_ms is null."""
+    B, S, D = shape
+    log_a = -torch.nn.functional.softplus(
+        torch.randn(B, S, D, device="cuda", generator=gen))
+    b = torch.randn(B, S, D, device="cuda", generator=gen)
+    h0 = (torch.zeros(B, D, device="cuda") if h0_zero
+          else torch.randn(B, D, device="cuda", generator=gen))
+
+    def run():
+        return rglru_kernel.rglru(log_a, b, h0)
+
+    def plain():
+        return rglru_ref(log_a, b, h0)
+
+    h = run()
+    torch.cuda.synchronize()
+    hp = plain()
+    check(bool(torch.isfinite(h).all()), f"rglru {label}: non-finite")
+    abs_e, rel_e = rel_err(torch, h, hp)
+    check(rel_e <= TOL["fp32"], f"rglru {label}: relative error "
+          f"{rel_e:.3g} above {TOL['fp32']}")
+    nbytes, bound_ms, bound_by = rglru_cost(B, S, D)
+    return {"case": label, "dtype": "fp32",
+            "shape": {"B": B, "S": S, "D": D}, "h0_zero": h0_zero,
+            "max_abs_err": abs_e, "rel_err": rel_e, "tol": TOL["fp32"],
+            "kernel_ms": time_ms(torch, run), "plain_ms": time_ms(torch, plain),
+            "library_ms": None, "bound_ms": bound_ms, "bound_by": bound_by,
+            "bytes": nbytes}
 
 
 def kernel_case(torch, kernel, ref, kind, shape, precision, activation,
@@ -259,12 +395,18 @@ def main() -> int:
         return 1
     sys.path.insert(0, str(src))
 
-    from repro_torch import quickstart
-    from repro_torch.core import elm, engine, graph, mtl_elm
+    from repro_torch import backbone, configs, quickstart
+    from repro_torch.core import elm, engine, graph, mtl_elm, solvers
+    from repro_torch.core.heads import pooled_features
     from repro_torch.data import pipeline, synthetic
     from repro_torch.kernels import _build
     from repro_torch.kernels.gram import kernel, ref
     from repro_torch.kernels.gram import ops as gram_ops
+    from repro_torch.kernels.rglru import kernel as rglru_kernel
+    from repro_torch.kernels.rglru.ref import rglru_scan_ref
+    from repro_torch.kernels.swa import kernel as swa_kernel
+    from repro_torch.kernels.swa.ref import swa_ref
+    from repro_torch.models import transformer
 
     # 1. environment -----------------------------------------------------
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -279,12 +421,20 @@ def main() -> int:
 
     # 2. build -----------------------------------------------------------
     t0 = time.perf_counter()
-    kernel.library()
-    log = _build.library_path(kernel.SOURCE).with_suffix(".log").read_text()
+    wrappers = {"gram": kernel, "swa": swa_kernel, "rglru": rglru_kernel}
+    with ThreadPoolExecutor(len(wrappers)) as pool:     # one nvcc per source
+        list(pool.map(lambda w: _build.build(w.SOURCE), wrappers.values()))
+    ptxas = {}
+    for name, w in wrappers.items():
+        w.library()
+        log = _build.library_path(w.SOURCE).with_suffix(".log").read_text()
+        ptxas[name] = [ln.strip() for ln in log.splitlines()
+                       if "registers" in ln or "spill" in ln
+                       or "Compiling entry" in ln]
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
-          "nvcc_seconds": _build.build_seconds.get("gram"),
-          "ptxas": [ln.strip() for ln in log.splitlines()
-                    if "registers" in ln or "spill" in ln]})
+          "nvcc_seconds": dict(_build.build_seconds), "ptxas": ptxas,
+          "swa_dynamic_smem_bytes": {
+              D: swa_kernel.smem_bytes(D) for D in (64, 120, 256)}})
 
     # 3. kernels against their plain versions ------------------------------
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -326,6 +476,22 @@ def main() -> int:
             cases["gram_dense"].append(kernel_case(
                 torch, kernel, ref, "gram_dense", shape, precision, None,
                 gen, label))
+    # swa: phase 6's call first, then recurrentgemma-2b's and h2o-danube's
+    # widths at S = 8192, then a ragged case; rglru: phase 6's call, ragged
+    cases["swa"] = [
+        swa_case(torch, swa_kernel, swa_ref, shape, precision, gen, label)
+        for label, shape, precision in (
+            ("main_path", (8, 10, 1, 4096, 256, 2048), "bf16"),
+            ("recurrentgemma_s8192", (1, 10, 1, 8192, 256, 2048), "fp32"),
+            ("recurrentgemma_s8192", (1, 10, 1, 8192, 256, 2048), "bf16"),
+            ("h2o_danube_s8192", (1, 32, 8, 8192, 120, 4096), "bf16"),
+            ("ragged", (2, 4, 2, 1000, 64, 100), "fp32"),
+            ("ragged", (2, 4, 2, 1000, 64, 100), "bf16"))]
+    cases["rglru"] = [
+        rglru_case(torch, rglru_kernel, rglru_scan_ref, (8, 4096, 2560), gen,
+                   "main_path", h0_zero=True),
+        rglru_case(torch, rglru_kernel, rglru_scan_ref, (3, 1000, 300), gen,
+                   "ragged", h0_zero=False)]
     kernels_seconds = time.perf_counter() - t0
     emit({"phase": "kernels", "seconds": kernels_seconds,
           "cases": {k: len(v) for k, v in cases.items()}})
@@ -355,14 +521,16 @@ def main() -> int:
         times[name] = time.perf_counter() - t
         return out
 
+    pcg_steps = []      # per PCG solve of the DMTL fit, steps per agent
+    engine.U_SOLVERS["pcg_counted"] = counted_pcg(solvers, pcg_steps)
     kernel.reset_launches()
     stats = timed("stats_fused_s", lambda: pipeline.stream_sufficient_stats(
         batches, producer="fused", feature_map=fmap))
     stats_mat = timed("stats_materialized_s",
                       lambda: pipeline.stream_sufficient_stats(
                           (fmap(x), y) for x, y in batches))
-    state, diag = timed("dmtl_fit_s",
-                        lambda: engine.fit_dense(stats, ring, cfg))
+    state, diag = timed("dmtl_fit_s", lambda: engine.fit_dense(
+        stats, ring, dataclasses.replace(cfg, u_solver="pcg_counted")))
     # FO-DMTL-ELM's step is stable only for tau_t above Theorem 2's bound
     # L_t + rho m (delta + 1/2) sigma_max, with L_t = ||G_t|| ||A_t A_t^T||
     # taken at the all-ones start (||A A^T|| = r d)
@@ -422,6 +590,7 @@ def main() -> int:
           "dmtl_objective": diag["objective"].tolist(),
           "dmtl_consensus": diag["consensus"].tolist(),
           "max_rel_diff_vs_plain_path": traj,
+          "pcg_steps_per_solve": pcg_steps,
           "peak_mem_gb": torch.cuda.max_memory_allocated() / 2**30})
 
     def test_error(U, A):
@@ -559,16 +728,121 @@ def main() -> int:
           "test_mse": {k: qs[k] for k in ("local", "mtl", "dmtl", "fo",
                                           "gs")}})
 
+    # 6. the backbone route at full recurrentgemma-2b width -------------------
+    rg = configs.get_config("recurrentgemma-2b")
+    m6, n_batches6, batch6, seq6, L6 = 4, 2, 8, 4096, 2048
+    times6 = {}
+
+    def timed6(name, fn):
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        times6[name] = time.perf_counter() - t
+        return out
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    params = timed6("init_s", lambda: transformer.init_model(
+        torch.Generator(device="cuda").manual_seed(0), rg))
+    fmap6 = elm.make_feature_map(7, rg.d_model, L6, dist="normal",
+                                 device="cuda")
+    gen6 = torch.Generator(device="cuda").manual_seed(1)
+    train6 = list(backbone.token_batches(gen6, n_batches6, n=batch6,
+                                         seq=seq6, m=m6))
+    test_tokens, test_labels = next(backbone.token_batches(
+        gen6, 1, n=batch6, seq=seq6, m=m6))
+    for w in wrappers.values():
+        w.reset_launches()
+    feats6 = timed6("encode_s", lambda: list(
+        backbone.agent_batches(params, rg, train6)))
+    stats6 = timed6("stats_s", lambda: pipeline.stream_sufficient_stats(
+        feats6, producer="fused", feature_map=fmap6))
+    cfg6 = backbone.admm_config()
+    pcg_steps6 = []
+    engine.U_SOLVERS["pcg_counted"] = counted_pcg(solvers, pcg_steps6)
+    state6, diag6 = timed6("fit_s", lambda: backbone.fit(
+        stats6, dataclasses.replace(cfg6, u_solver="pcg_counted")))
+    acc6 = timed6("eval_s", lambda: backbone.evaluate(
+        params, rg, fmap6, state6, stats6, cfg6, test_tokens, test_labels))
+    launches6 = {"swa": swa_kernel.LAUNCHES["swa"],
+                 "rglru": rglru_kernel.LAUNCHES["rglru"],
+                 "gram_fused": kernel.LAUNCHES["gram_fused"]}
+    n_encode = m6 * (n_batches6 + 1)      # training batches + evaluation
+    kinds = rg.layer_kinds()
+    want6 = {"swa": kinds.count("swa") * n_encode,
+             "rglru": kinds.count("rglru") * n_encode,
+             "gram_fused": n_batches6}
+    check(launches6 == want6, f"backbone route launches {launches6}, "
+          f"expected {want6}")
+    finite = [f for f, _ in feats6] + list(stats6) + list(diag6.values())
+    check(all(bool(torch.isfinite(torch.as_tensor(x)).all())
+              for x in finite), "backbone route: a feature, statistic or "
+          "diagnostic is not finite")
+    # (c) bf16: agent 0's first batch again, through the plain versions
+    tok0 = train6[0][0][:1]
+    plain6 = timed6("plain_check_bf16_s", lambda: pooled_features(
+        params, rg, tok0, use_kernel=False))
+    abs_c, rel_c = rel_err(torch, feats6[0][0][:1], plain6)
+    norm_c = norm_rel(torch, feats6[0][0][:1], plain6)
+    check(rel_c <= TOL["bf16"] and norm_c <= FEATURE_NORM_TOL,
+          f"bf16 pooled features off their plain versions by {rel_c:.3g} "
+          f"of max |plain|, {norm_c:.3g} in norm")
+    # (d) fp32: one sequence through all 26 layers, kernels against plain
+    rg32 = dataclasses.replace(rg, dtype="float32")
+    tok1 = train6[0][0][0, :1]
+    h_k = timed6("encode_fp32_one_seq_s",
+                 lambda: transformer.encode(params, rg32, tok1))
+    h_p = timed6("plain_check_fp32_s", lambda: transformer.encode(
+        params, rg32, tok1, use_kernel=False))
+    abs_d, rel_d = rel_err(torch, h_k, h_p)
+    norm_d = norm_rel(torch, h_k, h_p)
+    check(rel_d <= 1e-3, f"fp32 hidden states off their plain versions by "
+          f"{rel_d:.3g}")
+    emit({"phase": "backbone_route", "config": rg.name,
+          "params": transformer.param_count(params),
+          "agents": m6, "batches": n_batches6, "batch": batch6,
+          "seq": seq6, "L": L6, "times_s": times6, "launches": launches6,
+          "accuracy": acc6, "pcg_steps_per_solve": pcg_steps6,
+          "dmtl_objective": diag6["objective"].tolist(),
+          "dmtl_consensus": diag6["consensus"].tolist(),
+          "bf16_pooled_vs_plain": {"max_abs": abs_c, "rel": rel_c,
+                                   "norm_rel": norm_c},
+          "fp32_hidden_vs_plain": {"max_abs": abs_d, "rel": rel_d,
+                                   "norm_rel": norm_d},
+          "peak_mem_gb": torch.cuda.max_memory_allocated() / 2**30})
+    del params, feats6, stats6, state6, plain6, h_k, h_p
+    torch.cuda.empty_cache()
+
+    # 7. the backbone example as written ----------------------------------------
+    for w in wrappers.values():
+        w.reset_launches()
+    t0 = time.perf_counter()
+    bb = backbone.main(device="cuda")
+    check(kernel.LAUNCHES["gram_fused"] == backbone.N_BATCHES,
+          f"backbone example launched gram_fused "
+          f"{kernel.LAUNCHES['gram_fused']} times, not {backbone.N_BATCHES}")
+    check(math.isfinite(float(bb["objective"][-1])),
+          "backbone example objective not finite")
+    emit({"phase": "backbone_example", "seconds": time.perf_counter() - t0,
+          "accuracy": bb["accuracy"], "launches": dict(kernel.LAUNCHES)})
+
     sources = {"gram_tri": "src/repro/kernels/gram/kernel.py:224",
                "gram_fused": "src/repro/kernels/gram/kernel.py:464",
                "gram_tri_q": "src/repro/kernels/gram/kernel.py:334",
-               "gram_dense": "src/repro/kernels/gram/kernel.py:138"}
+               "gram_dense": "src/repro/kernels/gram/kernel.py:138",
+               "swa": "src/repro/kernels/swa/kernel.py:78",
+               "rglru": "src/repro/kernels/rglru/kernel.py:42"}
+    ported = {name: "src/repro_torch/kernels/gram/csrc/gram.cu"
+              for name in ("gram_tri", "gram_fused", "gram_tri_q",
+                           "gram_dense")}
+    ported["swa"] = "src/repro_torch/kernels/swa/csrc/swa.cu"
+    ported["rglru"] = "src/repro_torch/kernels/rglru/csrc/rglru.cu"
+    launches.update(swa=launches6["swa"], rglru=launches6["rglru"])
     rows = []
     for name, cs in cases.items():
         top = cs[0]     # the main path's shape
         rows.append({
-            "name": name, "route": "cuda",
-            "source": "src/repro_torch/kernels/gram/csrc/gram.cu",
+            "name": name, "route": "cuda", "source": ported[name],
             "replaces": sources[name], "launches": launches[name],
             "max_abs_err": top["max_abs_err"], "ms": top["kernel_ms"],
             "plain_ms": top["plain_ms"], "bound_ms": top["bound_ms"],

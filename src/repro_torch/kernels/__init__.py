@@ -11,4 +11,10 @@ Kernels:
         kernel, the fused act(X W + b) producer, the int8 kernel (per-tile
         scales, int32 tile sums on the tensor cores) and the one-agent
         dense-tile baseline
+  swa   causal sliding-window attention with an online softmax, GQA read in
+        place, the kv walk limited to the window (the ``"swa"`` blocks)
+  rglru the RG-LRU diagonal recurrence h_t = exp(log_a_t) h_{t-1} + b_t,
+        one thread per channel walking time (the ``"rglru"`` blocks)
+
+``_common.py`` holds the checks every wrapper makes before it launches.
 """

@@ -19,6 +19,7 @@ from pathlib import Path
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels._common import check, on_cpu, raise_on
 from repro_torch.kernels.gram.ref import (
     MAX_INT8_BLOCK_N,
     gram_fused_ref,
@@ -61,27 +62,6 @@ def library() -> ctypes.CDLL:
     return lib
 
 
-def _on_cpu(*tensors) -> bool:
-    devices = {t.device.type for t in tensors}
-    if devices == {"cpu"}:
-        return True
-    if devices != {"cuda"} or len({t.device for t in tensors}) != 1:
-        raise ValueError(
-            f"Gram kernels take tensors all on the CPU or all on one CUDA "
-            f"device, got {sorted(str(t.device) for t in tensors)}"
-        )
-    return False
-
-
-def _check(name, t, ndim, dtypes):
-    if t.ndim != ndim:
-        raise ValueError(f"{name} must be {ndim}-D, got shape {tuple(t.shape)}")
-    if t.dtype not in dtypes:
-        raise ValueError(f"{name} dtype {t.dtype} not in {dtypes}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
-
-
 def _check_sizes(m, *dims):
     """The grid's agent axis is gridDim.y (at most 65535); every other size
     crosses the C interface as a 32-bit int."""
@@ -92,21 +72,16 @@ def _check_sizes(m, *dims):
         )
 
 
-def _raise_on(code: int, name: str) -> None:
-    if code != 0:
-        raise RuntimeError(f"{name} launch failed: cudaError {code}")
-
-
 def gram_tri(H: torch.Tensor, T: torch.Tensor):
     """G = H^T H (symmetric) and R = H^T T for all m agents in one launch.
 
     H: (m, N, L), T: (m, N, D), both fp32 or both bf16, contiguous.
     Returns (G (m, L, L) fp32, R (m, L, D) fp32)."""
-    if _on_cpu(H, T):
+    if on_cpu("Gram", H, T):
         return gram_ref(H, T)
     dtypes = (torch.float32, torch.bfloat16)
-    _check("H", H, 3, dtypes)
-    _check("T", T, 3, (H.dtype,))
+    check("H", H, 3, dtypes)
+    check("T", T, 3, (H.dtype,))
     m, N, L = H.shape
     D = T.shape[-1]
     if T.shape[:2] != (m, N):
@@ -117,8 +92,8 @@ def gram_tri(H: torch.Tensor, T: torch.Tensor):
     G = torch.empty((m, L, L), dtype=torch.float32, device=H.device)
     R = torch.empty((m, L, D), dtype=torch.float32, device=H.device)
     stream = torch.cuda.current_stream(H.device).cuda_stream
-    _raise_on(fn(H.data_ptr(), T.data_ptr(), G.data_ptr(), R.data_ptr(),
-                 m, N, L, D, stream), "gram_tri")
+    raise_on(fn(H.data_ptr(), T.data_ptr(), G.data_ptr(), R.data_ptr(),
+                m, N, L, D, stream), "gram_tri")
     LAUNCHES["gram_tri"] += 1
     return G, R
 
@@ -138,14 +113,14 @@ def gram_fused(X: torch.Tensor, W: torch.Tensor, b: torch.Tensor,
         )
     if precision not in ("fp32", "bf16"):
         raise ValueError(f"fused precision must be fp32 or bf16, got {precision!r}")
-    if _on_cpu(X, W, b, T):
+    if on_cpu("Gram", X, W, b, T):
         return gram_fused_ref(X, W, b, T, activation, precision)
     f32 = (torch.float32,)
-    _check("X", X, 3, f32)
-    _check("W", W, 2, f32)
-    _check("b", b, 1, f32)
+    check("X", X, 3, f32)
+    check("W", W, 2, f32)
+    check("b", b, 1, f32)
     t_dtype = torch.bfloat16 if precision == "bf16" else torch.float32
-    _check("T", T, 3, (t_dtype,))
+    check("T", T, 3, (t_dtype,))
     m, N, d_in = X.shape
     L = W.shape[1]
     D = T.shape[-1]
@@ -160,9 +135,9 @@ def gram_fused(X: torch.Tensor, W: torch.Tensor, b: torch.Tensor,
     G = torch.empty((m, L, L), dtype=torch.float32, device=X.device)
     R = torch.empty((m, L, D), dtype=torch.float32, device=X.device)
     stream = torch.cuda.current_stream(X.device).cuda_stream
-    _raise_on(fn(X.data_ptr(), W.data_ptr(), b.data_ptr(), T.data_ptr(),
-                 G.data_ptr(), R.data_ptr(), m, N, L, D, d_in,
-                 ACTIVATION_CODES[activation], stream), "gram_fused")
+    raise_on(fn(X.data_ptr(), W.data_ptr(), b.data_ptr(), T.data_ptr(),
+                G.data_ptr(), R.data_ptr(), m, N, L, D, d_in,
+                ACTIVATION_CODES[activation], stream), "gram_fused")
     LAUNCHES["gram_fused"] += 1
     return G, R
 
@@ -182,11 +157,11 @@ def gram_tri_q(Hq: torch.Tensor, scales: torch.Tensor, T: torch.Tensor, *,
             f"int32 -> fp32 tile sums) and block_l >= 1, got "
             f"block_n={block_n}, block_l={block_l}"
         )
-    if _on_cpu(Hq, scales, T):
+    if on_cpu("Gram", Hq, scales, T):
         return gram_tri_q_ref(Hq, scales, T, block_n, block_l)
-    _check("Hq", Hq, 3, (torch.int8,))
-    _check("scales", scales, 3, (torch.float32,))
-    _check("T", T, 3, (torch.bfloat16,))
+    check("Hq", Hq, 3, (torch.int8,))
+    check("scales", scales, 3, (torch.float32,))
+    check("T", T, 3, (torch.bfloat16,))
     m, N, L = Hq.shape
     D = T.shape[-1]
     want = (m, -(-N // block_n), -(-L // block_l))
@@ -199,7 +174,7 @@ def gram_tri_q(Hq: torch.Tensor, scales: torch.Tensor, T: torch.Tensor, *,
     G = torch.empty((m, L, L), dtype=torch.float32, device=Hq.device)
     R = torch.empty((m, L, D), dtype=torch.float32, device=Hq.device)
     stream = torch.cuda.current_stream(Hq.device).cuda_stream
-    _raise_on(library().gram_tri_q(
+    raise_on(library().gram_tri_q(
         Hq.data_ptr(), scales.data_ptr(), T.data_ptr(), G.data_ptr(),
         R.data_ptr(), m, N, L, D, block_n, block_l, stream), "gram_tri_q")
     LAUNCHES["gram_tri_q"] += 1
@@ -212,10 +187,10 @@ def gram_dense(H: torch.Tensor, T: torch.Tensor):
 
     H: (N, L), T: (N, D), both fp32 or both bf16, contiguous.  Returns
     (G (L, L) fp32, R (L, D) fp32)."""
-    if _on_cpu(H, T):
+    if on_cpu("Gram", H, T):
         return gram_ref(H, T)
-    _check("H", H, 2, (torch.float32, torch.bfloat16))
-    _check("T", T, 2, (H.dtype,))
+    check("H", H, 2, (torch.float32, torch.bfloat16))
+    check("T", T, 2, (H.dtype,))
     N, L = H.shape
     D = T.shape[-1]
     if T.shape[0] != N:
@@ -226,7 +201,7 @@ def gram_dense(H: torch.Tensor, T: torch.Tensor):
     G = torch.empty((L, L), dtype=torch.float32, device=H.device)
     R = torch.empty((L, D), dtype=torch.float32, device=H.device)
     stream = torch.cuda.current_stream(H.device).cuda_stream
-    _raise_on(fn(H.data_ptr(), T.data_ptr(), G.data_ptr(), R.data_ptr(),
-                 N, L, D, stream), "gram_dense")
+    raise_on(fn(H.data_ptr(), T.data_ptr(), G.data_ptr(), R.data_ptr(),
+                N, L, D, stream), "gram_dense")
     LAUNCHES["gram_dense"] += 1
     return G, R

@@ -1,9 +1,14 @@
-"""The CUDA Gram kernels against their plain versions, on the card.
+"""The CUDA kernels (Gram, sliding-window attention, RG-LRU scan) against
+their plain versions, on the card.
 
 Marked ``cuda``: each test skips where CUDA is absent.  Run them on the
 card with ``python -m pytest -q -m cuda tests/test_torch_cuda.py`` (this
 file imports no JAX).  Tolerances: max |kernel - plain| / max |plain| below
-1e-4 in fp32 (only the summation order differs) and 3e-2 in bf16.
+1e-4 in fp32 (only the summation order differs) and 3e-2 in bf16.  ``swa``
+is also held in norm, ||kernel - plain|| / ||plain|| below SWA_NORM_TOL:
+its max |plain| comes from early rows with few live keys (row 0's output
+is v_0), so the max-based limit alone is loose on the rows with a full
+window, whose entries are ~W^-1/2 smaller.
 """
 
 import pytest
@@ -11,9 +16,16 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.kernels.gram import kernel, ops, ref  # noqa: E402
+from repro_torch.kernels.rglru import kernel as rglru_kernel  # noqa: E402
+from repro_torch.kernels.rglru import ops as rglru_ops  # noqa: E402
+from repro_torch.kernels.rglru.ref import rglru_scan_ref  # noqa: E402
+from repro_torch.kernels.swa import kernel as swa_kernel  # noqa: E402
+from repro_torch.kernels.swa import ops as swa_ops  # noqa: E402
+from repro_torch.kernels.swa.ref import swa_ref  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 TOL = {"fp32": 1e-4, "bf16": 3e-2}
+SWA_NORM_TOL = {"fp32": 1e-5, "bf16": 2e-3}
 
 
 @pytest.fixture
@@ -26,6 +38,10 @@ def gen():
 
 def _rel(a, b):
     return float((a - b).abs().max() / b.abs().max())
+
+
+def _norm_rel(a, b):
+    return float(torch.linalg.vector_norm(a - b) / torch.linalg.vector_norm(b))
 
 
 @pytest.mark.parametrize("precision", ["fp32", "bf16"])
@@ -139,3 +155,62 @@ def test_cuda_wrappers_reject_what_the_kernel_does_not_take(gen):
         kernel.gram_tri_q(Hq, s, T.float(), block_n=8, block_l=16)
     with pytest.raises(ValueError, match="2-D"):
         kernel.gram_dense(H, H)
+
+
+@pytest.mark.parametrize("precision", ["fp32", "bf16"])
+@pytest.mark.parametrize("B,H,KV,S,D,W", [
+    (2, 4, 2, 1000, 64, 100),    # ragged S, a window of two tiles
+    (1, 4, 1, 77, 120, 5),       # MQA, D = 120, W below the kv tile
+    (1, 2, 2, 33, 256, 1000),    # D = 256 (148 KB of shared memory), W > S
+    (1, 1, 1, 1, 1, 1),
+])
+def test_swa_matches_plain(gen, B, H, KV, S, D, W, precision):
+    dtype = torch.bfloat16 if precision == "bf16" else torch.float32
+    q = torch.randn(B, H, S, D, device="cuda", generator=gen).to(dtype)
+    k = torch.randn(B, KV, S, D, device="cuda", generator=gen).to(dtype)
+    v = torch.randn(B, KV, S, D, device="cuda", generator=gen).to(dtype)
+    before = swa_kernel.LAUNCHES["swa"]
+    o = swa_kernel.swa(q, k, v, W)
+    torch.cuda.synchronize()
+    assert swa_kernel.LAUNCHES["swa"] == before + 1
+    assert o.dtype == dtype and torch.isfinite(o.float()).all()
+    plain = swa_ref(q, k, v, W).float()
+    assert _rel(o.float(), plain) <= TOL[precision]
+    assert _norm_rel(o.float(), plain) <= SWA_NORM_TOL[precision]
+    # the op launches the same kernel on the same inputs
+    assert torch.equal(swa_ops.swa_attention(q, k, v, window=W), o)
+
+
+@pytest.mark.parametrize("B,S,D", [(3, 1000, 300), (2, 17, 130), (1, 1, 1),
+                                   (2, 4096, 256)])
+def test_rglru_matches_plain(gen, B, S, D):
+    log_a = -torch.nn.functional.softplus(
+        torch.randn(B, S, D, device="cuda", generator=gen))
+    b = torch.randn(B, S, D, device="cuda", generator=gen)
+    h0 = torch.randn(B, D, device="cuda", generator=gen)
+    before = rglru_kernel.LAUNCHES["rglru"]
+    h = rglru_ops.rglru_scan(log_a, b, h0)
+    torch.cuda.synchronize()
+    assert rglru_kernel.LAUNCHES["rglru"] == before + 1
+    assert _rel(h, rglru_scan_ref(log_a, b, h0)) <= TOL["fp32"]
+
+
+def test_swa_and_rglru_refuse_grad_and_mixed_devices(gen):
+    q = torch.randn(1, 2, 8, 16, device="cuda", generator=gen)
+    before = (swa_kernel.LAUNCHES["swa"], rglru_kernel.LAUNCHES["rglru"])
+    with pytest.raises(RuntimeError, match="forward-only"):
+        swa_kernel.swa(q.clone().requires_grad_(), q, q, 4)
+    with pytest.raises(ValueError, match="CPU or all on one CUDA"):
+        swa_kernel.swa(q, q.cpu(), q, 4)
+    with pytest.raises(ValueError, match="head_dim|D <= 256"):
+        big = torch.zeros(1, 1, 4, 264, device="cuda")
+        swa_kernel.swa(big, big, big, 4)
+    a = torch.zeros(1, 8, 16, device="cuda")
+    with pytest.raises(RuntimeError, match="forward-only"):
+        rglru_kernel.rglru(a.clone().requires_grad_(), a, a[:, 0])
+    with pytest.raises(ValueError, match="CPU or all on one CUDA"):
+        rglru_kernel.rglru(a, a.cpu(), a[:, 0])
+    with pytest.raises(ValueError, match="dtype"):
+        rglru_kernel.rglru(a.double(), a.double(), a[:, 0].double())
+    assert (swa_kernel.LAUNCHES["swa"],
+            rglru_kernel.LAUNCHES["rglru"]) == before
