@@ -5,8 +5,9 @@ Run from the repository root:  python3 chip_smoke.py
 
 Phases (any failure raises and the script exits non-zero):
   1. environment: the card, torch/CUDA versions, TF32 switched off;
-  2. build: nvcc compiles the Gram, sliding-window attention and RG-LRU
-     kernels from ``src/repro_torch``, one nvcc per source, all at once;
+  2. build: nvcc compiles the Gram, sliding-window attention, RG-LRU and
+     mLSTM kernels from ``src/repro_torch``, one nvcc per source, all at
+     once;
   3. kernels: each CUDA kernel against its plain PyTorch version at the
      main path's shape, the full backbone shape (m=8, N=8192, L=2048, D=8,
      d_in=256) and a ragged shape (m=3, N=1000, L=300, D=3, d_in=70), in
@@ -16,8 +17,11 @@ Phases (any failure raises and the script exits non-zero):
      dense baseline); ``swa`` at phase 6's shape, recurrentgemma-2b's and
      h2o-danube's at S = 8192, and a ragged one, also held in norm
      (``SWA_NORM_TOL``); ``rglru`` at phase 6's
-     shape and a ragged one with h0 != 0; times of the kernel, the plain
-     version and one library call;
+     shape and a ragged one with h0 != 0; ``mlstm`` at phase 8's call in
+     bf16 and fp32, a ragged S, a long memory, input gates near -80 and
+     -100 and a shape the step-by-step oracle can run, all held at fp32
+     level (``MLSTM_NORM_TOL``); times of the kernel, the plain version and
+     one library call;
   4. main path at full width: 8 agents, 8192 samples of 256 features each,
      an L=2048 hidden layer; the fused stats stream (``gram_fused``), the
      materialized stream (``gram_tri``), DMTL-ELM by consensus ADMM on a
@@ -39,7 +43,11 @@ Phases (any failure raises and the script exits non-zero):
      block launched its kernel; the features against the kernels' plain
      versions in bf16 (3e-2 of max |plain|, 3e-3 in norm) and, on one
      sequence, in fp32 (1e-3); each PCG solve's step count recorded;
-  7. the backbone example as written (``repro_torch.backbone.main``).
+  7. the backbone example as written (``repro_torch.backbone.main``);
+  8. the backbone route at full xlstm-1.3b width (48 layers: 42 mLSTM, 6
+     sLSTM; bf16 compute, fp32 weights from a seeded generator), as phase 6:
+     every mLSTM block launched ``mlstm``, the same checks, and one mLSTM
+     and one sLSTM block timed apart at the route's (8, 4096, 2048).
 
 The last three lines of standard output are the ``{"kernels": ...}`` JSON
 line, the card's name and power limit from nvidia-smi, and
@@ -68,8 +76,32 @@ TOL = {"fp32": 1e-4, "bf16": 3e-2, "int8": 1e-4}
 # those of rows with a full window, so the max-based limit alone is loose
 # there.  bf16: 2^-9, the unit roundoff of the bf16 output.
 SWA_NORM_TOL = {"fp32": 1e-5, "bf16": 2e-3}
-# phase 6's bf16 pooled features, kernels against plain versions, in norm
+# mlstm's output is fp32 from widened inputs in every case, so it is held
+# at fp32 level in norm, bf16 inputs too: 1.7e-6 to 2.3e-6 measured on the
+# H100 at D = 64 and 1024
+MLSTM_NORM_TOL = 1e-5
+# phases 6 and 8: bf16 pooled features, kernels against plain versions, in
+# norm
 FEATURE_NORM_TOL = 3e-3
+# phases 6 and 8: each block's sequence mixer with a kernel against its
+# plain version on the same input along the route, in norm; fp32 also
+# within TOL["fp32"] of max |plain|.  bf16 is held in norm only: one bf16
+# ulp flip of h before the head norm moves an element by up to 2^-8 of it,
+# so the max over a route's blocks is a coarse statistic (5.1e-3 and
+# 1.9e-2 on xlstm-1.3b in two runs, PERF.md §6); in norm they read
+# 2.2e-4 to 5.6e-4, and a kernel whose carried state does not decay 0.35.
+BLOCK_NORM_TOL = {"bf16": FEATURE_NORM_TOL, "fp32": 1e-5}
+# phases 6 and 8 end to end, kernels against plain versions: bf16 pooled
+# features (of max |plain|, in norm) and fp32 final hidden states (of max
+# |plain|).  A random-weight xlstm-1.3b amplifies fp32 roundoff through its
+# 48 layers: its plain version at chunk 128 against chunk 256, the same
+# function, parts by 4.4e-2, 4.7e-2 and 2.5e-2 (PERF.md §6).  Its limits
+# are about twice those, and the per-block check is what holds its kernel.
+END_TO_END_TOL = {
+    "recurrentgemma-2b": {"bf16_rel": TOL["bf16"],
+                          "bf16_norm_rel": FEATURE_NORM_TOL, "fp32_rel": 1e-3},
+    "xlstm-1.3b": {"bf16_rel": 9e-2, "bf16_norm_rel": 1e-1, "fp32_rel": 5e-2},
+}
 H_BYTES = {"fp32": 4, "bf16": 2, "int8": 1}
 REPEATS = 7
 
@@ -185,6 +217,93 @@ def rglru_cost(B, S, D):
     time."""
     nbytes = 4 * (3 * B * S * D + B * D)
     return nbytes, nbytes / PEAK_BYTES_PER_S * 1e3, "bytes"
+
+
+def mlstm_cost(B, H, S, D, precision):
+    """(bytes, bound ms, bound_by): q, k, v read once, the two fp32 gates
+    read once, h written once in fp32, against 4 B H S (D^2 + D) flops at
+    the rate of the inputs' precision: per step the rank-one updates of C
+    and n and the products C q and n . q, all that the step-by-step form
+    needs.  The chunkwise form does the same plus each chunk's causal
+    triangle of q k^T and S V (2 (l + 1) D more per step in a chunk of l
+    steps), which only a kernel parallel over time pays."""
+    ops = 4 * B * H * S * (D * D + D)
+    nbytes = (H_BYTES[precision] * 3 * B * H * S * D + 4 * 2 * B * H * S
+              + 4 * B * H * S * D)
+    byte_ms = nbytes / PEAK_BYTES_PER_S * 1e3
+    op_ms = ops / PEAK_OPS_PER_S[precision] * 1e3
+    return nbytes, max(byte_ms, op_ms), "bytes" if byte_ms > op_ms else \
+        "operations"
+
+
+def mlstm_case(torch, mlstm_kernel, refs, shape, precision, gen, label,
+               gates="std", sequential=False):
+    """The mlstm kernel against its plain version (the chunk algebra in
+    PyTorch) and, with ``sequential``, the step-by-step oracle.  Gates:
+    "std" log_f = log-sigmoid(N(2, 1)), i ~ N(0, 1); "long" log_f = -0.01;
+    "neg80" / "neg100" i ~ N(-80, 0.5) / N(-100, 1), where the floor e^{-m}
+    is ~1e35 / +inf (h ~1e-34 / exactly 0).  Errors are taken on the
+    outputs divided by max |plain|, so that ~1e-34 entries do not square
+    to 0 in the norm.  No single PyTorch call computes a gated recurrence
+    with a matrix state: library_ms is null."""
+    B, H, S, D, c = shape
+    chunkwise_ref, sequential_ref = refs
+    dtype = torch.bfloat16 if precision == "bf16" else torch.float32
+    q, k, v = (torch.randn(B, H, S, D, device="cuda", generator=gen).to(dtype)
+               for _ in range(3))
+    if gates == "long":
+        log_f = torch.full((B, H, S), -0.01, device="cuda")
+    else:
+        log_f = torch.nn.functional.logsigmoid(
+            torch.randn(B, H, S, device="cuda", generator=gen) + 2.0)
+    i_gate = torch.randn(B, H, S, device="cuda", generator=gen)
+    if gates == "neg80":
+        i_gate = 0.5 * i_gate - 80.0
+    elif gates == "neg100":
+        i_gate = i_gate - 100.0
+
+    def run():
+        return mlstm_kernel.mlstm(q, k, v, log_f, i_gate, c)
+
+    def plain():
+        return chunkwise_ref(q, k, v, log_f, i_gate, c)
+
+    h = run()
+    torch.cuda.synchronize()
+    hp = plain()
+    check(bool(torch.isfinite(h).all()), f"mlstm {label}: non-finite")
+    if gates == "neg100":
+        check(not bool(h.any()) and not bool(hp.any()),
+              f"mlstm {label}: h is not exactly 0 where e^-m overflows")
+    peak = float(hp.abs().max()) or 1.0
+    abs_e = float((h - hp).abs().max())
+    _, rel_e = rel_err(torch, h / peak, hp / peak)
+    norm_e = norm_rel(torch, h / peak, hp / peak)
+    check(rel_e <= TOL["fp32"], f"mlstm {label} {precision}: relative error "
+          f"{rel_e:.3g} above {TOL['fp32']}")
+    check(norm_e <= MLSTM_NORM_TOL, f"mlstm {label} {precision}: "
+          f"norm-relative error {norm_e:.3g} above {MLSTM_NORM_TOL}")
+    nbytes, bound_ms, bound_by = mlstm_cost(B, H, S, D, precision)
+    case = {"case": label, "dtype": precision, "gates": gates,
+            "shape": {"B": B, "H": H, "S": S, "D": D, "chunk": c},
+            "max_abs_err": abs_e, "max_plain": peak, "rel_err": rel_e,
+            "tol": TOL["fp32"], "norm_rel_err": norm_e,
+            "norm_tol": MLSTM_NORM_TOL}
+    if sequential:
+        hs = sequential_ref(q, k, v, log_f, i_gate)
+        _, seq_rel = rel_err(torch, h, hs)
+        seq_norm = norm_rel(torch, h, hs)
+        check(seq_rel <= TOL["fp32"] and seq_norm <= MLSTM_NORM_TOL,
+              f"mlstm {label}: off the step-by-step oracle by {seq_rel:.3g} "
+              f"of max, {seq_norm:.3g} in norm")
+        case.update(sequential_rel_err=seq_rel, sequential_norm_rel_err=seq_norm)
+        del hs
+    del h, hp
+    case.update(kernel_ms=time_ms(torch, run), plain_ms=time_ms(torch, plain),
+                library_ms=None, bound_ms=bound_ms, bound_by=bound_by,
+                bytes=nbytes)
+    torch.cuda.empty_cache()
+    return case
 
 
 def swa_case(torch, swa_kernel, swa_ref, shape, precision, gen, label):
@@ -381,6 +500,188 @@ def kernel_case(torch, kernel, ref, kind, shape, precision, activation,
     return case
 
 
+KERNEL_KINDS = ("swa", "rglru", "mlstm")   # each block of the kind launches it
+
+
+def block_errors(torch, params, cfg, tokens):
+    """Every block of a kind in ``KERNEL_KINDS`` against its plain version
+    on the same input, layer by layer along the kernel path: the largest
+    max-based and norm-relative errors of a block's sequence mixer (the part
+    that runs the kernel, before the residual add), and the number of blocks
+    held.  No error carries from one layer to the next."""
+    from repro_torch.models import transformer
+    from repro_torch.models.layers import rmsnorm
+
+    x = transformer._embed_tokens(params, cfg, tokens)
+    worst = {"rel": 0.0, "norm_rel": 0.0, "blocks": 0}
+    for layer, kind in zip(params["layers"], cfg.layer_kinds()):
+        if kind in KERNEL_KINDS:
+            h = rmsnorm(layer["ln1"], x, cfg.norm_eps)
+            o = transformer.mixer(layer, cfg, kind, h).float()
+            o_p = transformer.mixer(layer, cfg, kind, h,
+                                    use_kernel=False).float()
+            worst["rel"] = max(worst["rel"], rel_err(torch, o, o_p)[1])
+            worst["norm_rel"] = max(worst["norm_rel"], norm_rel(torch, o, o_p))
+            worst["blocks"] += 1
+        x, _, _ = transformer.block_apply(layer, cfg, kind, x)
+    return worst
+
+
+def encode_by_kind(torch, params, cfg, tokens):
+    """One bf16 encode of ``tokens`` (B, S) walked layer by layer, the card
+    synchronized after each block: host seconds per block kind, the rest
+    (embedding, final norm) under "other", and under "mlstm_kernel" the
+    device seconds of the ``mlstm`` calls inside the blocks (CUDA events
+    around each call: its launches and its allocations)."""
+    from repro_torch.kernels.mlstm import kernel as mlstm_kernel
+    from repro_torch.models import transformer
+    from repro_torch.models.layers import rmsnorm
+
+    launch, events = mlstm_kernel.mlstm, []
+
+    def timed_launch(*args):
+        start, stop = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        out = launch(*args)
+        stop.record()
+        events.append((start, stop))
+        return out
+
+    spent = dict.fromkeys(cfg.block_pattern, 0.0)
+    mlstm_kernel.mlstm = timed_launch
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        x = transformer._embed_tokens(params, cfg, tokens)
+        for layer, kind in zip(params["layers"], cfg.layer_kinds()):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            x, _, _ = transformer.block_apply(layer, cfg, kind, x)
+            torch.cuda.synchronize()
+            spent[kind] += time.perf_counter() - t
+        rmsnorm(params["final_norm"], x, cfg.norm_eps)
+        torch.cuda.synchronize()
+        spent["other"] = time.perf_counter() - t0 - sum(spent.values())
+    finally:
+        mlstm_kernel.mlstm = launch
+    spent["mlstm_kernel"] = sum(a.elapsed_time(b) for a, b in events) / 1e3
+    spent["mlstm_calls"] = len(events)
+    return spent
+
+
+def backbone_route(torch, cfg, wrappers, n_batches):
+    """Phases 6 and 8: ``cfg`` at full width through ``repro_torch.backbone``
+    (4 agents, ``n_batches`` batches of 8 x 4096 tokens each, pooled features
+    into fused L = 2048 statistics, DMTL-ELM on ring(4) at r = 8 with each
+    PCG solve's steps recorded, held-out accuracy on 8 sequences per agent).
+    Every block of a kind in ``KERNEL_KINDS`` launched its kernel once per
+    encode, each batch ``gram_fused`` once, and nothing else launched;
+    features, statistics and diagnostics are finite.  (c) bf16, agent 0's
+    first batch, and (d) fp32, one sequence: every block with a kernel
+    against its plain version on the same input along the kernel path
+    (``BLOCK_NORM_TOL``), then end to end, the pooled features (bf16) and
+    the final hidden states (fp32) against the plain versions
+    (``END_TO_END_TOL``).  Returns (the phase's record, the weights)."""
+    from repro_torch import backbone
+    from repro_torch.core import elm, engine, solvers
+    from repro_torch.core.heads import pooled_features
+    from repro_torch.data import pipeline
+    from repro_torch.models import transformer
+
+    m, batch, seq, L = 4, 8, 4096, 2048
+    times = {}
+
+    def timed(name, fn):
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        times[name] = time.perf_counter() - t
+        return out
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    params = timed("init_s", lambda: transformer.init_model(
+        torch.Generator(device="cuda").manual_seed(0), cfg))
+    fmap = elm.make_feature_map(7, cfg.d_model, L, dist="normal",
+                                device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    train = list(backbone.token_batches(gen, n_batches, n=batch, seq=seq,
+                                        m=m))
+    test_tokens, test_labels = next(backbone.token_batches(
+        gen, 1, n=batch, seq=seq, m=m))
+    for w in wrappers.values():
+        w.reset_launches()
+    feats = timed("encode_s", lambda: list(
+        backbone.agent_batches(params, cfg, train)))
+    stats = timed("stats_s", lambda: pipeline.stream_sufficient_stats(
+        feats, producer="fused", feature_map=fmap))
+    cfg_admm = backbone.admm_config()
+    pcg_steps = []
+    engine.U_SOLVERS["pcg_counted"] = counted_pcg(solvers, pcg_steps)
+    state, diag = timed("fit_s", lambda: backbone.fit(
+        stats, dataclasses.replace(cfg_admm, u_solver="pcg_counted")))
+    acc = timed("eval_s", lambda: backbone.evaluate(
+        params, cfg, fmap, state, stats, cfg_admm, test_tokens, test_labels))
+    launches = {name: n for w in wrappers.values()
+                for name, n in w.LAUNCHES.items()}
+    kinds = cfg.layer_kinds()
+    n_encode = m * (n_batches + 1)      # training batches + evaluation
+    want = dict.fromkeys(launches, 0)
+    want.update({k: kinds.count(k) * n_encode for k in KERNEL_KINDS},
+                gram_fused=n_batches)
+    check(launches == want, f"{cfg.name} route launches {launches}, "
+          f"expected {want}")
+    finite = [f for f, _ in feats] + list(stats) + list(diag.values())
+    check(all(bool(torch.isfinite(torch.as_tensor(x)).all())
+              for x in finite), f"{cfg.name} route: a feature, statistic or "
+          f"diagnostic is not finite")
+    # (c) bf16 on agent 0's first batch, (d) fp32 on one sequence
+    tok0, tok1 = train[0][0][:1], train[0][0][0, :1]
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    blocks = {}
+    for dtype, c, tok in (("bf16", cfg, tok0[0]), ("fp32", cfg32, tok1)):
+        blocks[dtype] = timed(f"block_check_{dtype}_s",
+                              lambda: block_errors(torch, params, c, tok))
+        check(blocks[dtype]["norm_rel"] <= BLOCK_NORM_TOL[dtype]
+              and (dtype == "bf16" or blocks[dtype]["rel"] <= TOL["fp32"]),
+              f"{cfg.name} {dtype}: a block off its plain version on the "
+              f"same input by {blocks[dtype]}, above {BLOCK_NORM_TOL[dtype]}"
+              f" in norm or {TOL['fp32']} of max |plain| (fp32)")
+    plain = timed("plain_check_bf16_s", lambda: pooled_features(
+        params, cfg, tok0, use_kernel=False))
+    abs_c, rel_c = rel_err(torch, feats[0][0][:1], plain)
+    norm_c = norm_rel(torch, feats[0][0][:1], plain)
+    h_k = timed("encode_fp32_one_seq_s",
+                lambda: transformer.encode(params, cfg32, tok1))
+    h_p = timed("plain_check_fp32_s", lambda: transformer.encode(
+        params, cfg32, tok1, use_kernel=False))
+    abs_d, rel_d = rel_err(torch, h_k, h_p)
+    norm_d = norm_rel(torch, h_k, h_p)
+    limits = END_TO_END_TOL[cfg.name]
+    check(rel_c <= limits["bf16_rel"] and norm_c <= limits["bf16_norm_rel"],
+          f"{cfg.name}: bf16 pooled features off their plain versions by "
+          f"{rel_c:.3g} of max |plain|, {norm_c:.3g} in norm, above {limits}")
+    check(rel_d <= limits["fp32_rel"], f"{cfg.name}: fp32 hidden states "
+          f"off their plain versions by {rel_d:.3g}, above {limits}")
+    record = {
+        "config": cfg.name, "layers": cfg.n_layers,
+        "params": transformer.param_count(params), "agents": m,
+        "batches": n_batches, "batch": batch, "seq": seq, "L": L,
+        "times_s": times,
+        "launches": {k: n for k, n in launches.items() if want[k]},
+        "accuracy": acc, "pcg_steps_per_solve": pcg_steps,
+        "dmtl_objective": diag["objective"].tolist(),
+        "dmtl_consensus": diag["consensus"].tolist(),
+        "bf16_pooled_vs_plain": {"max_abs": abs_c, "rel": rel_c,
+                                 "norm_rel": norm_c},
+        "fp32_hidden_vs_plain": {"max_abs": abs_d, "rel": rel_d,
+                                 "norm_rel": norm_d},
+        "blocks_vs_plain_same_input": blocks,
+        "end_to_end_limits": limits,
+        "peak_mem_gb": torch.cuda.max_memory_allocated() / 2**30}
+    return record, params
+
+
 def main() -> int:
     import torch
 
@@ -397,16 +698,20 @@ def main() -> int:
 
     from repro_torch import backbone, configs, quickstart
     from repro_torch.core import elm, engine, graph, mtl_elm, solvers
-    from repro_torch.core.heads import pooled_features
     from repro_torch.data import pipeline, synthetic
     from repro_torch.kernels import _build
     from repro_torch.kernels.gram import kernel, ref
     from repro_torch.kernels.gram import ops as gram_ops
+    from repro_torch.kernels.mlstm import kernel as mlstm_kernel
+    from repro_torch.kernels.mlstm.ref import (
+        mlstm_chunkwise_ref,
+        mlstm_sequential_ref,
+    )
     from repro_torch.kernels.rglru import kernel as rglru_kernel
     from repro_torch.kernels.rglru.ref import rglru_scan_ref
     from repro_torch.kernels.swa import kernel as swa_kernel
     from repro_torch.kernels.swa.ref import swa_ref
-    from repro_torch.models import transformer
+    from repro_torch.models import xlstm
 
     # 1. environment -----------------------------------------------------
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -421,7 +726,8 @@ def main() -> int:
 
     # 2. build -----------------------------------------------------------
     t0 = time.perf_counter()
-    wrappers = {"gram": kernel, "swa": swa_kernel, "rglru": rglru_kernel}
+    wrappers = {"gram": kernel, "swa": swa_kernel, "rglru": rglru_kernel,
+                "mlstm": mlstm_kernel}
     with ThreadPoolExecutor(len(wrappers)) as pool:     # one nvcc per source
         list(pool.map(lambda w: _build.build(w.SOURCE), wrappers.values()))
     ptxas = {}
@@ -492,6 +798,23 @@ def main() -> int:
                    "main_path", h0_zero=True),
         rglru_case(torch, rglru_kernel, rglru_scan_ref, (3, 1000, 300), gen,
                    "ragged", h0_zero=False)]
+    # mlstm: phase 8's call first (bf16, then fp32), then a ragged S, a long
+    # memory at full width, input gates where e^-m is ~1e35 and +inf, and a
+    # shape that the step-by-step oracle runs too
+    refs = (mlstm_chunkwise_ref, mlstm_sequential_ref)
+    cases["mlstm"] = [
+        mlstm_case(torch, mlstm_kernel, refs, shape, precision, gen, label,
+                   gates, sequential)
+        for label, shape, precision, gates, sequential in (
+            ("main_path", (8, 4, 4096, 1024, 256), "bf16", "std", False),
+            ("main_path", (8, 4, 4096, 1024, 256), "fp32", "std", False),
+            ("ragged", (2, 2, 1000, 64, 256), "fp32", "std", False),
+            ("long_memory", (1, 4, 4096, 1024, 256), "bf16", "long", False),
+            ("input_gate_-80", (2, 2, 1000, 64, 256), "fp32", "neg80",
+             False),
+            ("input_gate_-100", (2, 2, 1000, 64, 256), "fp32", "neg100",
+             False),
+            ("oracle", (1, 4, 1024, 1024, 256), "fp32", "std", True))]
     kernels_seconds = time.perf_counter() - t0
     emit({"phase": "kernels", "seconds": kernels_seconds,
           "cases": {k: len(v) for k, v in cases.items()}})
@@ -729,88 +1052,10 @@ def main() -> int:
                                           "gs")}})
 
     # 6. the backbone route at full recurrentgemma-2b width -------------------
-    rg = configs.get_config("recurrentgemma-2b")
-    m6, n_batches6, batch6, seq6, L6 = 4, 2, 8, 4096, 2048
-    times6 = {}
-
-    def timed6(name, fn):
-        t = time.perf_counter()
-        out = fn()
-        torch.cuda.synchronize()
-        times6[name] = time.perf_counter() - t
-        return out
-
-    torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats()
-    params = timed6("init_s", lambda: transformer.init_model(
-        torch.Generator(device="cuda").manual_seed(0), rg))
-    fmap6 = elm.make_feature_map(7, rg.d_model, L6, dist="normal",
-                                 device="cuda")
-    gen6 = torch.Generator(device="cuda").manual_seed(1)
-    train6 = list(backbone.token_batches(gen6, n_batches6, n=batch6,
-                                         seq=seq6, m=m6))
-    test_tokens, test_labels = next(backbone.token_batches(
-        gen6, 1, n=batch6, seq=seq6, m=m6))
-    for w in wrappers.values():
-        w.reset_launches()
-    feats6 = timed6("encode_s", lambda: list(
-        backbone.agent_batches(params, rg, train6)))
-    stats6 = timed6("stats_s", lambda: pipeline.stream_sufficient_stats(
-        feats6, producer="fused", feature_map=fmap6))
-    cfg6 = backbone.admm_config()
-    pcg_steps6 = []
-    engine.U_SOLVERS["pcg_counted"] = counted_pcg(solvers, pcg_steps6)
-    state6, diag6 = timed6("fit_s", lambda: backbone.fit(
-        stats6, dataclasses.replace(cfg6, u_solver="pcg_counted")))
-    acc6 = timed6("eval_s", lambda: backbone.evaluate(
-        params, rg, fmap6, state6, stats6, cfg6, test_tokens, test_labels))
-    launches6 = {"swa": swa_kernel.LAUNCHES["swa"],
-                 "rglru": rglru_kernel.LAUNCHES["rglru"],
-                 "gram_fused": kernel.LAUNCHES["gram_fused"]}
-    n_encode = m6 * (n_batches6 + 1)      # training batches + evaluation
-    kinds = rg.layer_kinds()
-    want6 = {"swa": kinds.count("swa") * n_encode,
-             "rglru": kinds.count("rglru") * n_encode,
-             "gram_fused": n_batches6}
-    check(launches6 == want6, f"backbone route launches {launches6}, "
-          f"expected {want6}")
-    finite = [f for f, _ in feats6] + list(stats6) + list(diag6.values())
-    check(all(bool(torch.isfinite(torch.as_tensor(x)).all())
-              for x in finite), "backbone route: a feature, statistic or "
-          "diagnostic is not finite")
-    # (c) bf16: agent 0's first batch again, through the plain versions
-    tok0 = train6[0][0][:1]
-    plain6 = timed6("plain_check_bf16_s", lambda: pooled_features(
-        params, rg, tok0, use_kernel=False))
-    abs_c, rel_c = rel_err(torch, feats6[0][0][:1], plain6)
-    norm_c = norm_rel(torch, feats6[0][0][:1], plain6)
-    check(rel_c <= TOL["bf16"] and norm_c <= FEATURE_NORM_TOL,
-          f"bf16 pooled features off their plain versions by {rel_c:.3g} "
-          f"of max |plain|, {norm_c:.3g} in norm")
-    # (d) fp32: one sequence through all 26 layers, kernels against plain
-    rg32 = dataclasses.replace(rg, dtype="float32")
-    tok1 = train6[0][0][0, :1]
-    h_k = timed6("encode_fp32_one_seq_s",
-                 lambda: transformer.encode(params, rg32, tok1))
-    h_p = timed6("plain_check_fp32_s", lambda: transformer.encode(
-        params, rg32, tok1, use_kernel=False))
-    abs_d, rel_d = rel_err(torch, h_k, h_p)
-    norm_d = norm_rel(torch, h_k, h_p)
-    check(rel_d <= 1e-3, f"fp32 hidden states off their plain versions by "
-          f"{rel_d:.3g}")
-    emit({"phase": "backbone_route", "config": rg.name,
-          "params": transformer.param_count(params),
-          "agents": m6, "batches": n_batches6, "batch": batch6,
-          "seq": seq6, "L": L6, "times_s": times6, "launches": launches6,
-          "accuracy": acc6, "pcg_steps_per_solve": pcg_steps6,
-          "dmtl_objective": diag6["objective"].tolist(),
-          "dmtl_consensus": diag6["consensus"].tolist(),
-          "bf16_pooled_vs_plain": {"max_abs": abs_c, "rel": rel_c,
-                                   "norm_rel": norm_c},
-          "fp32_hidden_vs_plain": {"max_abs": abs_d, "rel": rel_d,
-                                   "norm_rel": norm_d},
-          "peak_mem_gb": torch.cuda.max_memory_allocated() / 2**30})
-    del params, feats6, stats6, state6, plain6, h_k, h_p
+    route6, params = backbone_route(
+        torch, configs.get_config("recurrentgemma-2b"), wrappers, n_batches=2)
+    emit({"phase": "backbone_route", **route6})
+    del params
     torch.cuda.empty_cache()
 
     # 7. the backbone example as written ----------------------------------------
@@ -826,18 +1071,48 @@ def main() -> int:
     emit({"phase": "backbone_example", "seconds": time.perf_counter() - t0,
           "accuracy": bb["accuracy"], "launches": dict(kernel.LAUNCHES)})
 
+    # 8. the backbone route at full xlstm-1.3b width -----------------------------
+    xl = configs.get_config("xlstm-1.3b")
+    route8, params = backbone_route(torch, xl, wrappers, n_batches=2)
+    # one mLSTM and one sLSTM block apart, at the route's (8, 4096, d_model)
+    kinds = xl.layer_kinds()
+    x = torch.randn(8, 4096, xl.d_model, device="cuda",
+                    generator=gen).to(torch.bfloat16)
+    with torch.no_grad():
+        block_ms = {kind: time_ms(torch, lambda kind=kind: getattr(
+            xlstm, f"{kind}_block")(params["layers"][kinds.index(kind)][kind],
+                                    xl, x)) for kind in ("mlstm", "slstm")}
+    # one encode of agent 0's first batch split by block kind, the mLSTM
+    # blocks' time into the kernel's calls inside them and the rest
+    tokens = next(backbone.token_batches(
+        torch.Generator(device="cuda").manual_seed(1), 1, n=8, seq=4096,
+        m=4))[0][0]
+    with torch.no_grad():
+        split = encode_by_kind(torch, params, xl, tokens)
+    check(split["mlstm_calls"] == kinds.count("mlstm"),
+          f"one encode called mlstm {split['mlstm_calls']} times")
+    split["mlstm_outside_kernel"] = split["mlstm"] - split["mlstm_kernel"]
+    emit({"phase": "backbone_route_xlstm", **route8, "block_ms": block_ms,
+          "one_encode_by_kind_s": split})
+    del params, x, tokens
+    torch.cuda.empty_cache()
+
     sources = {"gram_tri": "src/repro/kernels/gram/kernel.py:224",
                "gram_fused": "src/repro/kernels/gram/kernel.py:464",
                "gram_tri_q": "src/repro/kernels/gram/kernel.py:334",
                "gram_dense": "src/repro/kernels/gram/kernel.py:138",
                "swa": "src/repro/kernels/swa/kernel.py:78",
-               "rglru": "src/repro/kernels/rglru/kernel.py:42"}
+               "rglru": "src/repro/kernels/rglru/kernel.py:42",
+               "mlstm": "src/repro/kernels/mlstm/kernel.py:89"}
     ported = {name: "src/repro_torch/kernels/gram/csrc/gram.cu"
               for name in ("gram_tri", "gram_fused", "gram_tri_q",
                            "gram_dense")}
     ported["swa"] = "src/repro_torch/kernels/swa/csrc/swa.cu"
     ported["rglru"] = "src/repro_torch/kernels/rglru/csrc/rglru.cu"
-    launches.update(swa=launches6["swa"], rglru=launches6["rglru"])
+    ported["mlstm"] = "src/repro_torch/kernels/mlstm/csrc/mlstm.cu"
+    launches.update(swa=route6["launches"]["swa"],
+                    rglru=route6["launches"]["rglru"],
+                    mlstm=route8["launches"]["mlstm"])
     rows = []
     for name, cs in cases.items():
         top = cs[0]     # the main path's shape

@@ -1,7 +1,8 @@
 """Architecture registry of the port.
 
-Two of the reference's ten architectures are ported: the sliding-window
-models whose blocks run the ``swa`` and ``rglru`` kernels.  Every other
+Three of the reference's ten architectures are ported: the sliding-window
+models whose blocks run the ``swa`` and ``rglru`` kernels, and xlstm-1.3b,
+whose mLSTM blocks run the ``mlstm`` kernel.  Every other
 registered name raises ``NotImplementedError`` naming the slice that brings
 it (ROADMAP queue 1)."""
 
@@ -12,11 +13,11 @@ import importlib
 _ARCH_MODULES = {
     "recurrentgemma-2b": "repro_torch.configs.recurrentgemma_2b",
     "h2o-danube-3-4b": "repro_torch.configs.h2o_danube_3_4b",
+    "xlstm-1.3b": "repro_torch.configs.xlstm_1_3b",
 }
 
 # the reference's other architectures, and the slice that brings each
 _LATER = {
-    "xlstm-1.3b": "the xlstm slice (mLSTM/sLSTM blocks and the mlstm kernel)",
     "qwen3-moe-30b-a3b": "the LM-substrate slice (MoE blocks)",
     "granite-moe-3b-a800m": "the LM-substrate slice (MoE blocks)",
     "seamless-m4t-large-v2": "the LM-substrate slice (encoder-decoder)",

@@ -15,6 +15,14 @@ Kernels:
         place, the kv walk limited to the window (the ``"swa"`` blocks)
   rglru the RG-LRU diagonal recurrence h_t = exp(log_a_t) h_{t-1} + b_t,
         one thread per channel walking time (the ``"rglru"`` blocks)
+  mlstm the chunkwise mLSTM (matrix memory, stabilized exponential gates):
+        a gate scan, the chunk states C^T tile by tile, the gated intra-chunk
+        scores, then the outputs, four grids in one call (the ``"mlstm"``
+        blocks)
 
 ``_common.py`` holds the checks every wrapper makes before it launches.
 """
+
+from repro_torch.kernels.mlstm import mlstm_chunkwise
+
+__all__ = ["mlstm_chunkwise"]

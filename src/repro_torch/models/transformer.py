@@ -9,10 +9,10 @@ list in the reference's order, cycle c block j at index c * len(pattern) + j,
 then the remainder (``convert.model_from_numpy`` unstacks).  Layer l has
 kind ``cfg.layer_kinds()[l]``.
 
-Ported: mode ``"train"`` for the kinds ``attn``, ``swa`` and ``rglru``.  The
-kinds ``moe``/``mlstm``/``slstm``, prefill and decode, encoder-decoder
-models and prefix embeddings raise ``NotImplementedError`` naming their
-slice.  ``models/sharding.py`` has nothing to port on one device (its calls
+Ported: mode ``"train"`` for the kinds ``attn``, ``swa``, ``rglru``,
+``mlstm`` and ``slstm``.  The kind ``moe``, prefill and decode,
+encoder-decoder models and prefix embeddings raise ``NotImplementedError``
+naming their slice.  ``models/sharding.py`` has nothing to port on one device (its calls
 are no-ops without a mesh); the multi-GPU slice brings it.
 """
 
@@ -35,12 +35,15 @@ from repro_torch.models.layers import (
 )
 from repro_torch.models.mlp import mlp, mlp_init
 from repro_torch.models.rglru import rglru_block, rglru_init
+from repro_torch.models.xlstm import (
+    mlstm_block,
+    mlstm_init,
+    slstm_block,
+    slstm_init,
+)
 
-_LATER_KINDS = {
-    "moe": "the LM-substrate slice (MoE FFN)",
-    "mlstm": "the xlstm slice (with the mlstm kernel)",
-    "slstm": "the xlstm slice",
-}
+_LATER_KINDS = {"moe": "the LM-substrate slice (MoE FFN)"}
+_KINDS = ("attn", "swa", "rglru", "mlstm", "slstm")
 
 
 def _unsupported(cfg: ModelConfig, prefix_embeds=None, enc_embeds=None):
@@ -57,7 +60,7 @@ def _kind_supported(kind: str) -> None:
         raise NotImplementedError(
             f"block kind {kind!r} is not ported yet; it comes with "
             f"{_LATER_KINDS[kind]}")
-    if kind not in ("attn", "swa", "rglru"):
+    if kind not in _KINDS:
         raise ValueError(f"unknown block kind {kind}")
 
 
@@ -65,6 +68,13 @@ def block_init(gen: torch.Generator, cfg: ModelConfig, kind: str):
     _kind_supported(kind)
     dev = gen.device
     p: dict[str, Any] = {"ln1": rmsnorm_init(cfg.d_model, dev)}
+    # xLSTM blocks carry their own projections: no ln2, no MLP
+    if kind == "mlstm":
+        p["mlstm"] = mlstm_init(gen, cfg)
+        return p
+    if kind == "slstm":
+        p["slstm"] = slstm_init(gen, cfg)
+        return p
     if kind == "rglru":
         p["rglru"] = rglru_init(gen, cfg)
     else:
@@ -74,26 +84,41 @@ def block_init(gen: torch.Generator, cfg: ModelConfig, kind: str):
     return p
 
 
+def mixer(params, cfg: ModelConfig, kind: str, h: torch.Tensor, *,
+          positions=None, use_kernel: bool = True) -> torch.Tensor:
+    """A block's sequence mixer on its normed input ``h`` (B, S, d): the
+    part of the block that runs a kernel (``swa``, ``rglru``, ``mlstm``;
+    the sLSTM's step loop has none).  ``use_kernel=False`` runs the
+    kernels' plain versions on any device."""
+    if kind == "mlstm":
+        return mlstm_block(params["mlstm"], cfg, h, use_kernel=use_kernel)
+    if kind == "slstm":
+        return slstm_block(params["slstm"], cfg, h)
+    if kind == "rglru":
+        return rglru_block(params["rglru"], cfg, h, use_kernel=use_kernel)[0]
+    window = cfg.sliding_window if kind == "swa" else None
+    return self_attention_block(params["attn"], cfg, h, positions,
+                                window=window, use_kernel=use_kernel)
+
+
 def block_apply(params, cfg: ModelConfig, kind: str, x: torch.Tensor, *,
                 mode: str = "train", positions=None, use_kernel: bool = True):
-    """One block in train mode.  ``positions=None`` means ``arange(S)``
-    (windowed blocks then run the ``swa`` kernel).  ``use_kernel=False``
-    runs the ``swa`` and ``rglru`` kernels' plain versions on any device.
-    Returns (x, new_entry = None, aux = 0), the reference's triple."""
+    """One block in train mode: the residual mixer, then (all but the xLSTM
+    blocks, which carry their own projections) the residual MLP.
+    ``positions=None`` means ``arange(S)`` (windowed blocks then run the
+    ``swa`` kernel).  ``use_kernel=False`` runs the ``swa``, ``rglru`` and
+    ``mlstm`` kernels' plain versions on any device.  Returns (x, new_entry
+    = None, aux = 0), the reference's triple."""
     if mode != "train":
         raise NotImplementedError(
             f"mode {mode!r} (KV and recurrent caches) comes with the serving "
             f"slice")
     _kind_supported(kind)
-    h = rmsnorm(params["ln1"], x, cfg.norm_eps)
-    if kind == "rglru":
-        o, _ = rglru_block(params["rglru"], cfg, h, use_kernel=use_kernel)
-    else:
-        window = cfg.sliding_window if kind == "swa" else None
-        o = self_attention_block(params["attn"], cfg, h, positions,
-                                 window=window, use_kernel=use_kernel)
-    x = x + o
-    x = x + mlp(params["mlp"], cfg, rmsnorm(params["ln2"], x, cfg.norm_eps))
+    x = x + mixer(params, cfg, kind, rmsnorm(params["ln1"], x, cfg.norm_eps),
+                  positions=positions, use_kernel=use_kernel)
+    if kind not in ("mlstm", "slstm"):
+        x = x + mlp(params["mlp"], cfg,
+                    rmsnorm(params["ln2"], x, cfg.norm_eps))
     return x, None, 0.0
 
 

@@ -1,5 +1,5 @@
-"""The CUDA kernels (Gram, sliding-window attention, RG-LRU scan) against
-their plain versions, on the card.
+"""The CUDA kernels (Gram, sliding-window attention, RG-LRU scan, chunkwise
+mLSTM) against their plain versions, on the card.
 
 Marked ``cuda``: each test skips where CUDA is absent.  Run them on the
 card with ``python -m pytest -q -m cuda tests/test_torch_cuda.py`` (this
@@ -8,7 +8,9 @@ file imports no JAX).  Tolerances: max |kernel - plain| / max |plain| below
 is also held in norm, ||kernel - plain|| / ||plain|| below SWA_NORM_TOL:
 its max |plain| comes from early rows with few live keys (row 0's output
 is v_0), so the max-based limit alone is loose on the rows with a full
-window, whose entries are ~W^-1/2 smaller.
+window, whose entries are ~W^-1/2 smaller.  ``mlstm`` returns fp32 from
+widened inputs, so it is held at fp32 level in every dtype, in norm below
+MLSTM_NORM_TOL as well.
 """
 
 import pytest
@@ -16,6 +18,12 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.kernels.gram import kernel, ops, ref  # noqa: E402
+from repro_torch.kernels.mlstm import kernel as mlstm_kernel  # noqa: E402
+from repro_torch.kernels.mlstm import ops as mlstm_ops  # noqa: E402
+from repro_torch.kernels.mlstm.ref import (  # noqa: E402
+    mlstm_chunkwise_ref,
+    mlstm_sequential_ref,
+)
 from repro_torch.kernels.rglru import kernel as rglru_kernel  # noqa: E402
 from repro_torch.kernels.rglru import ops as rglru_ops  # noqa: E402
 from repro_torch.kernels.rglru.ref import rglru_scan_ref  # noqa: E402
@@ -26,6 +34,7 @@ from repro_torch.kernels.swa.ref import swa_ref  # noqa: E402
 pytestmark = pytest.mark.cuda
 TOL = {"fp32": 1e-4, "bf16": 3e-2}
 SWA_NORM_TOL = {"fp32": 1e-5, "bf16": 2e-3}
+MLSTM_NORM_TOL = 1e-5
 
 
 @pytest.fixture
@@ -214,3 +223,78 @@ def test_swa_and_rglru_refuse_grad_and_mixed_devices(gen):
         rglru_kernel.rglru(a.double(), a.double(), a[:, 0].double())
     assert (swa_kernel.LAUNCHES["swa"],
             rglru_kernel.LAUNCHES["rglru"]) == before
+
+
+def _mlstm_inputs(gen, B, H, S, D, dtype, log_f=None, i_shift=0.0):
+    q, k, v = (torch.randn(B, H, S, D, device="cuda", generator=gen).to(dtype)
+               for _ in range(3))
+    if log_f is None:
+        f = torch.nn.functional.logsigmoid(
+            torch.randn(B, H, S, device="cuda", generator=gen) + 2.0)
+    else:
+        f = torch.full((B, H, S), log_f, device="cuda")
+    i = torch.randn(B, H, S, device="cuda", generator=gen) + i_shift
+    return q, k, v, f, i
+
+
+@pytest.mark.parametrize("precision", ["fp32", "bf16"])
+@pytest.mark.parametrize("B,H,S,D,chunk", [
+    (2, 2, 1000, 64, 256),       # ragged S: the last chunk holds 232 steps
+    (1, 2, 100, 80, 40),         # D = 80 not a multiple of the 64 tile
+    (1, 1, 70, 16, 8),           # chunks below the 32-step slice
+    (1, 1, 1, 16, 4),            # one step
+    (1, 2, 300, 1024, 64),       # the route's D
+    (2, 1, 77, 32, 256),         # one chunk, shorter than the chunk size
+])
+def test_mlstm_matches_plain(gen, B, H, S, D, chunk, precision):
+    dtype = torch.bfloat16 if precision == "bf16" else torch.float32
+    q, k, v, f, i = _mlstm_inputs(gen, B, H, S, D, dtype)
+    before = mlstm_kernel.LAUNCHES["mlstm"]
+    h = mlstm_kernel.mlstm(q, k, v, f, i, chunk)
+    torch.cuda.synchronize()
+    assert mlstm_kernel.LAUNCHES["mlstm"] == before + 1
+    assert h.dtype == torch.float32 and torch.isfinite(h).all()
+    plain = mlstm_chunkwise_ref(q, k, v, f, i, chunk)
+    assert _rel(h, plain) <= TOL["fp32"]
+    assert _norm_rel(h, plain) <= MLSTM_NORM_TOL
+    # the op launches the same kernel on the same inputs
+    assert torch.equal(mlstm_ops.mlstm_chunkwise(q, k, v, f, i, chunk=chunk),
+                       h)
+
+
+def test_mlstm_long_memory_and_negative_input_gates(gen):
+    """Long memory against the step-by-step oracle and across chunk sizes;
+    i ~ -100, where e^{-m} overflows: h is exactly 0, with no NaN."""
+    q, k, v, f, i = _mlstm_inputs(gen, 1, 2, 512, 64, torch.float32,
+                                  log_f=-0.01)
+    h = mlstm_kernel.mlstm(q, k, v, f, i, 64)
+    seq = mlstm_sequential_ref(q, k, v, f, i)
+    assert _rel(h, seq) <= TOL["fp32"] and _norm_rel(h, seq) <= MLSTM_NORM_TOL
+    assert _norm_rel(mlstm_kernel.mlstm(q, k, v, f, i, 512), h) <= \
+        MLSTM_NORM_TOL
+    q, k, v, f, i = _mlstm_inputs(gen, 1, 2, 300, 64, torch.float32,
+                                  i_shift=-100.0)
+    h = mlstm_kernel.mlstm(q, k, v, f, i, 64)
+    assert not h.any() and not mlstm_chunkwise_ref(q, k, v, f, i, 64).any()
+
+
+def test_mlstm_refuses_what_the_kernel_does_not_take(gen):
+    q, k, v, f, i = _mlstm_inputs(gen, 1, 1, 8, 16, torch.float32)
+    before = mlstm_kernel.LAUNCHES["mlstm"]
+    with pytest.raises(ValueError, match="multiple of 16"):
+        x = torch.zeros(1, 1, 8, 40, device="cuda")
+        mlstm_kernel.mlstm(x, x, x, f, i, 4)
+    with pytest.raises(ValueError, match="multiple of 16"):
+        x = torch.zeros(1, 1, 8, 1040, device="cuda")
+        mlstm_kernel.mlstm(x, x, x, f, i, 4)
+    with pytest.raises(ValueError, match="dtype"):
+        mlstm_kernel.mlstm(q, k.bfloat16(), v, f, i, 4)
+    with pytest.raises(ValueError, match="dtype"):
+        mlstm_kernel.mlstm(q, k, v, f.bfloat16(), i, 4)
+    with pytest.raises(ValueError, match="shapes do not agree"):
+        mlstm_kernel.mlstm(q, k, v, f[..., :4].contiguous(), i, 4)
+    with pytest.raises(ValueError, match="CPU or all on one CUDA"):
+        mlstm_kernel.mlstm(q, k, v, f.cpu(), i, 4)
+    with pytest.raises(RuntimeError, match="forward-only"):
+        mlstm_kernel.mlstm(q.clone().requires_grad_(), k, v, f, i, 4)
+    assert mlstm_kernel.LAUNCHES["mlstm"] == before

@@ -9,7 +9,8 @@ blocks take their kernels' plain versions).  Blocks agree within 1e-5
 within 1e-4 of max |reference| in fp32 and 3e-2 in bf16 (the reference
 rounds p to bf16 before P V, the port's sliding-window path keeps it fp32).
 recurrentgemma runs with n_layers = 5 (one cycle of (rglru, rglru, swa)
-plus two trailing blocks) and S = 40 > window 16.
+plus two trailing blocks) and S = 40 > window 16; xlstm-1.3b with its smoke
+config's (mlstm, slstm) cycle, S = 40 in five chunks of 8.
 """
 
 import dataclasses
@@ -29,6 +30,7 @@ from repro.models import mlp as jm  # noqa: E402
 from repro.models import rglru as jr  # noqa: E402
 from repro.models import transformer as jt  # noqa: E402
 from repro_torch import configs, convert  # noqa: E402
+from repro_torch.kernels.mlstm import kernel as mlstm_kernel  # noqa: E402
 from repro_torch.kernels.rglru import kernel as rglru_kernel  # noqa: E402
 from repro_torch.kernels.swa import kernel as swa_kernel  # noqa: E402
 from repro_torch.models import attention as ta  # noqa: E402
@@ -37,7 +39,8 @@ from repro_torch.models import mlp as tm  # noqa: E402
 from repro_torch.models import rglru as tr  # noqa: E402
 from repro_torch.models import transformer as tt  # noqa: E402
 
-SMOKE = {"recurrentgemma-2b": {"n_layers": 5}, "h2o-danube-3-4b": {}}
+SMOKE = {"recurrentgemma-2b": {"n_layers": 5}, "h2o-danube-3-4b": {},
+         "xlstm-1.3b": {}}
 S = 40
 
 
@@ -84,8 +87,8 @@ def test_configs_match_the_reference_and_refuse_later_slices():
     full = configs.get_config("recurrentgemma-2b")
     assert full.layer_kinds().count("rglru") == 18
     assert full.layer_kinds().count("swa") == 8
-    with pytest.raises(NotImplementedError, match="xlstm slice"):
-        configs.get_config("xlstm-1.3b")
+    with pytest.raises(NotImplementedError, match="LM-substrate slice"):
+        configs.get_config("qwen3-moe-30b-a3b")
     with pytest.raises(KeyError):
         configs.get_config("no-such-model")
 
@@ -95,11 +98,13 @@ def test_encode_matches_reference_fp32(models, name):
     _, tc, _, tp, tokens, want = models[name]
     swa_kernel.reset_launches()
     rglru_kernel.reset_launches()
+    mlstm_kernel.reset_launches()
     got = tt.encode(tp, tc, torch.tensor(tokens))
     assert got.shape == want.shape and got.dtype == torch.float32
     assert _rel(got, want) <= 1e-4
     # CPU tensors never launch a kernel
     assert swa_kernel.LAUNCHES["swa"] == rglru_kernel.LAUNCHES["rglru"] == 0
+    assert mlstm_kernel.LAUNCHES["mlstm"] == 0
 
 
 def test_encode_matches_reference_bf16(models):
@@ -273,10 +278,11 @@ def test_later_slices_raise():
     gen = torch.Generator().manual_seed(0)
     with pytest.raises(NotImplementedError, match="MoE"):
         tt.block_init(gen, tc, "moe")
-    with pytest.raises(NotImplementedError, match="xlstm slice"):
-        tt.init_model(gen, dataclasses.replace(tc, block_pattern=("mlstm",)))
     params = tt.init_model(gen, tc)
     x = torch.zeros(1, 4, tc.d_model)
+    with pytest.raises(NotImplementedError, match="serving slice"):
+        tt.block_apply(tt.block_init(gen, tc, "mlstm"), tc, "mlstm", x,
+                       mode="decode")
     with pytest.raises(NotImplementedError, match="serving slice"):
         tt.block_apply(params["layers"][0], tc, "swa", x, mode="decode")
     with pytest.raises(NotImplementedError, match="softcap"):
