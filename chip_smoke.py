@@ -7,14 +7,17 @@ Phases (any failure raises and the script exits non-zero):
   1. environment: the card, torch/CUDA versions, TF32 switched off;
   2. build: nvcc compiles the Gram, sliding-window attention, RG-LRU and
      mLSTM kernels from ``src/repro_torch``, one nvcc per source, all at
-     once;
+     once; ptxas's registers, spill bytes and static shared memory of
+     every kernel, on the build line;
   3. kernels: each CUDA kernel against its plain PyTorch version at the
      main path's shape, the full backbone shape (m=8, N=8192, L=2048, D=8,
      d_in=256) and a ragged shape (m=3, N=1000, L=300, D=3, d_in=70), in
      fp32 and bf16 (``gram_tri_q``: int8 from one Hq/scales per case,
      block_l 128 and 32, its quantization pass timed apart;
      ``gram_dense``: one agent); G must be exactly symmetric (all but the
-     dense baseline); ``swa`` at phase 6's shape, recurrentgemma-2b's and
+     dense baseline); ``gram_fused`` also reports its workspace and
+     chunks (two at the full shape in fp32); ``swa`` at phase 6's shape,
+     recurrentgemma-2b's and
      h2o-danube's at S = 8192, and a ragged one, also held in norm
      (``SWA_NORM_TOL``); ``rglru`` at phase 6's
      shape and a ragged one with h0 != 0; ``mlstm`` at phase 8's call in
@@ -60,6 +63,7 @@ import dataclasses
 import json
 from concurrent.futures import ThreadPoolExecutor
 import math
+import re
 import statistics
 import subprocess
 import sys
@@ -169,7 +173,7 @@ def counted_pcg(solvers, steps: list):
 
 
 def gram_cost(kind, m, N, L, D, d_in, precision, n_scales=0):
-    """(bytes, bound ms, bound_by, recomputed hidden-layer flops): every
+    """(bytes, bound ms, bound_by): every
     input read once, every output written once; the useful flops of the
     lower triangle of G plus R (plus the hidden layer once, fused), which
     is all that G = HᵀH and R = HᵀT need, the dense baseline included.
@@ -178,7 +182,6 @@ def gram_cost(kind, m, N, L, D, d_in, precision, n_scales=0):
     h_bytes = H_BYTES[precision]
     out_bytes = 4 * m * L * (L + D)
     gram_ops = m * N * L * (L + 1) + 2 * m * N * L * D
-    recompute = 0
     if kind in ("gram_tri", "gram_dense"):
         nbytes = h_bytes * m * N * (L + D) + out_bytes
         op_ms = gram_ops / PEAK_OPS_PER_S[precision] * 1e3
@@ -191,11 +194,27 @@ def gram_cost(kind, m, N, L, D, d_in, precision, n_scales=0):
         hidden_ops = 2 * m * N * d_in * L
         op_ms = (hidden_ops / PEAK_OPS_PER_S["fp32"]
                  + gram_ops / PEAK_OPS_PER_S[precision]) * 1e3
-        nl = -(-L // 128)
-        recompute = 2 * m * N * d_in * 128 * nl * nl - hidden_ops
     byte_ms = nbytes / PEAK_BYTES_PER_S * 1e3
     bound_by = "bytes" if byte_ms > op_ms else "operations"
-    return nbytes, max(byte_ms, op_ms), bound_by, recompute
+    return nbytes, max(byte_ms, op_ms), bound_by
+
+
+def ptxas_resources(log: str) -> list[dict]:
+    """Each kernel's registers, spill bytes and static shared memory from
+    an ``nvcc -Xptxas -v`` log (dynamic shared memory is not in it)."""
+    rows = []
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            rows.append({"kernel": line.split("'")[1]})
+        elif rows and "spill stores" in line:
+            rows[-1]["spill_stores"], rows[-1]["spill_loads"] = (
+                int(x) for x in re.findall(r"(\d+) bytes spill", line))
+        elif rows and "registers" in line:
+            rows[-1]["registers"] = int(re.search(r"Used (\d+) registers",
+                                                  line).group(1))
+            smem = re.search(r"(\d+) bytes smem", line)
+            rows[-1]["static_smem"] = int(smem.group(1)) if smem else 0
+    return rows
 
 
 def swa_cost(B, H, KV, S, D, W, precision):
@@ -463,8 +482,10 @@ def kernel_case(torch, kernel, ref, kind, shape, precision, activation,
             Hl = act(torch.baddbmm(b, X, Wb)).to(dtype)
             return torch.bmm(Hl.mT, Hl), torch.bmm(Hl.mT, T)
 
+    kernel.LAST_FUSED.update(chunks=0, hidden_rows=0, workspace_bytes=0)
     G, R = run()
     torch.cuda.synchronize()
+    launched = dict(kernel.LAST_FUSED)   # this call's, as the wrapper counted
     Gp, Rp = plain()
     check(bool(torch.isfinite(G).all() and torch.isfinite(R).all()),
           f"{kind} {label}: non-finite output")
@@ -478,7 +499,7 @@ def kernel_case(torch, kernel, ref, kind, shape, precision, activation,
           f"R {rel_r:.3g} above {TOL[precision]}")
     if kind == "gram_dense":
         m = 1
-    nbytes, bound_ms, bound_by, recompute = gram_cost(
+    nbytes, bound_ms, bound_by = gram_cost(
         kind, m, N, L, D, d_in, precision, n_scales)
     case = {
         "case": label, "dtype": precision, "activation": activation,
@@ -491,7 +512,13 @@ def kernel_case(torch, kernel, ref, kind, shape, precision, activation,
         **extra,
     }
     if kind == "gram_fused":
-        case["recomputed_hidden_flops"] = recompute
+        # the hidden layer over ``hidden_rows`` sample rows of all m agents;
+        # rows past N are rows computed again (the first port rebuilt H per
+        # tile pair, ~L / 128 times over)
+        case.update(chunks=launched["chunks"],
+                    workspace_bytes=launched["workspace_bytes"],
+                    recomputed_hidden_flops=2 * m * d_in * L
+                    * (launched["hidden_rows"] - N))
     if kind == "gram_dense":
         # what the baseline's algorithm does: every tile pair, the full square
         case["algorithmic_ops"] = 2 * N * L * L + 2 * N * L * D
@@ -733,14 +760,14 @@ def main() -> int:
     ptxas = {}
     for name, w in wrappers.items():
         w.library()
-        log = _build.library_path(w.SOURCE).with_suffix(".log").read_text()
-        ptxas[name] = [ln.strip() for ln in log.splitlines()
-                       if "registers" in ln or "spill" in ln
-                       or "Compiling entry" in ln]
+        ptxas[name] = ptxas_resources(_build.library_path(
+            w.SOURCE).with_suffix(".log").read_text())
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "nvcc_seconds": dict(_build.build_seconds), "ptxas": ptxas,
           "swa_dynamic_smem_bytes": {
-              D: swa_kernel.smem_bytes(D) for D in (64, 120, 256)}})
+              str(dtype).removeprefix("torch."): {
+                  D: swa_kernel.smem_bytes(D, dtype) for D in (64, 120, 256)}
+              for dtype in (torch.float32, torch.bfloat16)}})
 
     # 3. kernels against their plain versions ------------------------------
     gen = torch.Generator(device="cuda").manual_seed(0)

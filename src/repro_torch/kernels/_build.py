@@ -1,9 +1,10 @@
 """Build and load the hand-written CUDA kernels.
 
 Each ``csrc/*.cu`` source has a plain ``extern "C"`` interface.  It is
-compiled with nvcc for Hopper (``sm_90a``) into a shared library under
-``kernels/_build/`` at first use, keyed on a hash of the source and the
-flags, and loaded with ``ctypes``.  No PyTorch headers are compiled, so a
+compiled with nvcc for Hopper (``sm_90a``), with ``kernels/include/`` (the
+shared PTX helpers) on the include path, into a shared library under
+``kernels/_build/`` at first use, keyed on a hash of the source, the shared
+headers and the flags, and loaded with ``ctypes``.  No PyTorch headers are compiled, so a
 build takes seconds.  A failed build raises; nothing falls back.
 """
 
@@ -19,6 +20,7 @@ import time
 from pathlib import Path
 
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
+INCLUDE_DIR = Path(__file__).resolve().parent / "include"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -44,10 +46,11 @@ def nvcc_path() -> str:
 
 
 def library_path(source: Path) -> Path:
-    digest = hashlib.sha256(
-        source.read_bytes() + " ".join(NVCC_FLAGS).encode()
-    ).hexdigest()[:16]
-    return BUILD_DIR / f"{source.stem}-{digest}.so"
+    digest = hashlib.sha256(source.read_bytes())
+    for header in sorted(INCLUDE_DIR.glob("*.cuh")):
+        digest.update(header.name.encode() + header.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{source.stem}-{digest.hexdigest()[:16]}.so"
 
 
 def build(source: Path) -> Path:
@@ -63,7 +66,8 @@ def build(source: Path) -> Path:
     os.close(fd)
     t0 = time.perf_counter()
     proc = subprocess.run(
-        [nvcc_path(), *NVCC_FLAGS, "-o", tmp, str(source)],
+        [nvcc_path(), *NVCC_FLAGS, "-I", str(INCLUDE_DIR), "-o", tmp,
+         str(source)],
         capture_output=True, text=True,
     )
     build_seconds[source.stem] = time.perf_counter() - t0

@@ -10,12 +10,12 @@
 // flops on the lower triangle and every byte of H is read once per tile pair
 // that touches it, so the arithmetic intensity is ~BL/2 flops per byte even in
 // this simple form; fp32 runs on the CUDA cores (no TF32 anywhere), so the
-// floor is the 67 TFLOP/s fp32 rate.  bf16 inputs are widened to fp32 and run
-// on the same FMA path: the tensor-core floor of bf16 is not reached by this
-// kernel (a wgmma version is later work).  int8 (gram_tri_q) runs on the
-// tensor cores through mma.sync m16n8k32 with int32 accumulators; its floor is
-// the 1979 TOP/s int8 rate, far below what byte-wise staging without a
-// pipeline reaches (a TMA + wgmma version is later work).
+// floor is the 67 TFLOP/s fp32 rate.  gram_tri and gram_dense widen bf16
+// inputs to fp32 and run them on the same FMA path: their tensor-core floor is
+// not reached (later work).  int8 (gram_tri_q) runs on the tensor cores
+// through mma.sync m16n8k32 with int32 accumulators; its floor is the 1979
+// TOP/s int8 rate, far below what byte-wise staging without a pipeline
+// reaches (a TMA + wgmma version is later work).
 //
 // Design:
 //  * One thread block per (agent, lower-triangular tile pair (i, j <= i)); the
@@ -31,12 +31,6 @@
 //    16 target columns per pass over N; a second pass only for D > 16.
 //  * Ragged N and L are masked in the kernel: rows >= N and columns >= L load
 //    as 0, and nothing outside [0, L) is stored.  The wrapper never pads.
-//  * gram_fused builds each hidden tile act(X W[:, tile] + b[tile]) in shared
-//    memory from staged X rows and W columns (d_in walked 16 at a time), masks
-//    rows >= N and columns >= L to exact 0 AFTER the activation (act(0) != 0),
-//    and, for bf16, rounds the tile to bf16 before the product.  The two
-//    hidden tiles of a pair are recomputed for every pair, as on the TPU: with
-//    nl = L / 128 tile rows the hidden layer is computed ~(nl + 1) times.
 //  * gram_tri_q keeps the grid and the mirror of gram_tri.  The quantization
 //    tile (block_n rows x block_l columns, one fp32 scale each) is part of the
 //    math, not of this tiling: block_l may be 32 inside a 128-wide G tile, so
@@ -52,6 +46,42 @@
 //    (i, j) tile pair, j > i included, no mirror, R on j == 0; the same
 //    staging and FMA path as gram_tri, twice the tiles.
 //
+// gram_fused (H = act(X W + b) never given by the caller):
+//  * The TPU kernel keeps each hidden tile in VMEM and never writes H to HBM.
+//    An SM has at most 227 KB of shared memory, so a tile pair cannot keep its
+//    hidden tiles across the sample axis; rebuilding them per pair (the first
+//    port) computed the hidden layer ~L / 128 times over and cost ~10x the
+//    library.  What bounds the call is then operations: the hidden layer,
+//    2 m N d_in L fp32 flops, once, plus the Gram's m N L^2.
+//  * So the hidden layer is computed ONCE per call, a chunk of whole sample
+//    rows of all m agents at a time, into a workspace of (m, rows, ldh) in the
+//    compute dtype that the wrapper allocates (torch.empty) and bounds by a
+//    budget (kernel.py's FUSED_WORKSPACE_BYTES): it does not grow with N.
+//    The trade: H is written and read once more (~0.27 GB at m 8, N 2048,
+//    L 2048 fp32, ~0.08 ms at 3.35 TB/s), and each later chunk reads G back.
+//  * Stage 1, hidden_kernel: a 128 x 128 register-tiled fp32 product per
+//    block (g_update's 8 x 8 per thread), X and W staged 16 d_in at a time
+//    (the next slice loaded into registers during this slice's products, as
+//    float4 where d_in, L and the pointers allow, two shared buffers), d_in
+//    walked in order with fmaf (no TF32); the epilogue adds the bias,
+//    applies the activation (gelu: the tanh form), stores rows < rows and
+//    columns < ldh, columns >= L as exact 0 AFTER the activation (act(0) !=
+//    0), and rounds to bf16 in the bf16 stream.
+//  * Stage 2 adds the chunk's lower-triangular G and its R into the outputs:
+//    the first chunk stores, each later chunk loads, adds and stores, one
+//    owner per element (a diagonal tile still writes its lower half and
+//    mirrors it, so G stays exactly symmetric).  fp32: gram_tri's FMA body.
+//    bf16: gram_mma_kernel, mma.sync m16n8k16 bf16 -> fp32 on the 2 x 4
+//    layout of 64 x 32 warp sub-tiles of gram_tri_q (same accumulator row and
+//    column maps), fragments by ldmatrix.trans from row-major H tiles staged
+//    with cp.async in a ring of four 32-sample stages (three in flight while
+//    one is read, one barrier a stage).  R is on the tensor cores too: on
+//    the j == 0 blocks each warp adds a 16-row x 16-column slice of H_i^T T
+//    (two mmas a k-step beside G's sixteen); on the FMA path, as in
+//    gram_tri, R took 0.8 of this grid's 2.0 ms on an H100 at m 8, N 8192,
+//    L 2048.  Both gram_fused kernels are held to 128 registers (a few
+//    bytes of spill), so that two blocks share an SM.
+//
 // Interface: plain C, one entry per kernel and dtype, launched on the caller's
 // stream; each returns cudaGetLastError() of its launch.
 
@@ -61,16 +91,16 @@
 #include <cstdint>
 #include <type_traits>
 
+#include "ptx.cuh"
+
 namespace {
 
 constexpr int BL = 128;  // G tile edge
 constexpr int BK = 16;   // sample rows staged per step
 constexpr int RD = 16;   // R columns per pass
-constexpr int DC = 16;   // d_in columns staged per step (fused)
 constexpr int NT = 256;  // threads per block
 
 static_assert(NT == 256 && BL == 128, "thread layouts below assume 256 x 128");
-static_assert(BK * DC == NT, "one X element per thread per staging step");
 
 enum Activation { kSigmoid = 0, kTanh = 1, kRelu = 2, kGelu = 3 };
 
@@ -130,7 +160,8 @@ __device__ __forceinline__ void load_t_tile(float (*dst)[RD], const T* __restric
 }
 
 // acc[p][q] += sum_k hi[k][row(p)] * hj[k][col(q)]
-__device__ __forceinline__ void g_update(const float (*hi)[BL], const float (*hj)[BL],
+template <int SI, int SJ>
+__device__ __forceinline__ void g_update(const float (*hi)[SI], const float (*hj)[SJ],
                                          int ty, int tx, float acc[8][8]) {
 #pragma unroll
   for (int k = 0; k < BK; ++k) {
@@ -160,18 +191,33 @@ __device__ __forceinline__ void r_update(const float (*hi)[BL], const float (*t)
   }
 }
 
+// accumulate: add to what the outputs hold (a later chunk of gram_fused)
 __device__ __forceinline__ void store_r(float* __restrict__ Ra, const float racc[8],
-                                        int L, int D, int i, int d0) {
+                                        int L, int D, int i, int d0,
+                                        bool accumulate = false) {
   const int l = i * BL + threadIdx.x % BL;
   const int dbase = d0 + (threadIdx.x / BL) * 8;
   if (l >= L) return;
 #pragma unroll
   for (int q = 0; q < 8; ++q)
-    if (dbase + q < D) Ra[static_cast<size_t>(l) * D + dbase + q] = racc[q];
+    if (dbase + q < D) {
+      float* at = Ra + static_cast<size_t>(l) * D + dbase + q;
+      *at = accumulate ? *at + racc[q] : racc[q];
+    }
+}
+
+// One element of a lower-triangular tile and its mirror; G is exactly
+// symmetric before a later chunk adds to it, so the lower element is the sum.
+__device__ __forceinline__ void store_g_pair(float* __restrict__ Ga, int L, int gr, int gc,
+                                            float v, bool accumulate) {
+  if (accumulate) v += Ga[static_cast<size_t>(gr) * L + gc];
+  Ga[static_cast<size_t>(gr) * L + gc] = v;
+  Ga[static_cast<size_t>(gc) * L + gr] = v;
 }
 
 __device__ __forceinline__ void store_g(float* __restrict__ Ga, const float acc[8][8],
-                                       int L, int i, int j, int ty, int tx) {
+                                       int L, int i, int j, int ty, int tx,
+                                       bool accumulate = false) {
 #pragma unroll
   for (int p = 0; p < 8; ++p) {
     const int r = tile_index(ty, p);
@@ -180,20 +226,21 @@ __device__ __forceinline__ void store_g(float* __restrict__ Ga, const float acc[
       const int c = tile_index(tx, q);
       const int gr = i * BL + r, gc = j * BL + c;
       // a diagonal tile writes its lower half and mirrors it: exact symmetry
-      if (gr < L && gc < L && (i != j || r >= c)) {
-        Ga[static_cast<size_t>(gr) * L + gc] = acc[p][q];
-        Ga[static_cast<size_t>(gc) * L + gr] = acc[p][q];
-      }
+      if (gr < L && gc < L && (i != j || r >= c))
+        store_g_pair(Ga, L, gr, gc, acc[p][q], accumulate);
     }
   }
 }
 
+// t_stride: elements between agents of T (N * D, or the whole sample axis's
+// for a gram_fused chunk); accumulate: add into G and R (later chunks).
 template <typename T>
 __global__ void __launch_bounds__(NT) gram_tri_kernel(const T* __restrict__ H,
                                                       const T* __restrict__ Tg,
                                                       float* __restrict__ G,
                                                       float* __restrict__ R, int N,
-                                                      int L, int D) {
+                                                      int L, int D, size_t t_stride,
+                                                      bool accumulate) {
   __shared__ __align__(16) float hi_s[BK][BL];
   __shared__ __align__(16) float hj_s[BK][BL];
   __shared__ __align__(16) float t_s[BK][RD];
@@ -202,7 +249,7 @@ __global__ void __launch_bounds__(NT) gram_tri_kernel(const T* __restrict__ H,
   int i, j;
   tri_decode(blockIdx.x, i, j);
   const T* Ha = H + static_cast<size_t>(a) * N * L;
-  const T* Ta = Tg + static_cast<size_t>(a) * N * D;
+  const T* Ta = Tg + static_cast<size_t>(a) * t_stride;
   const bool diag = (i == j), owns_r = (j == 0);
   const float(*hj)[BL] = diag ? hi_s : hj_s;
   const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
@@ -227,84 +274,40 @@ __global__ void __launch_bounds__(NT) gram_tri_kernel(const T* __restrict__ H,
       if (owns_r) r_update(hi_s, t_s, racc);
       __syncthreads();
     }
-    if (owns_r) store_r(R + static_cast<size_t>(a) * L * D, racc, L, D, i, d0);
+    if (owns_r) store_r(R + static_cast<size_t>(a) * L * D, racc, L, D, i, d0, accumulate);
   }
-  store_g(G + static_cast<size_t>(a) * L * L, acc, L, i, j, ty, tx);
+  store_g(G + static_cast<size_t>(a) * L * L, acc, L, i, j, ty, tx, accumulate);
 }
 
-// One 16 x 128 hidden tile per call: pre-activations of rows n0.. for the
-// thread's column c = tid % 128 and rows k0 = (tid / 128) * 8 .. k0 + 7.
-template <bool kRoundBf16>
-__device__ __forceinline__ void hidden_tiles(
-    float (*hi)[BL], float (*hj)[BL], float (*x_s)[DC], float (*wi_s)[BL],
-    float (*wj_s)[BL], const float* __restrict__ Xa, const float* __restrict__ W,
-    const float* __restrict__ bias, int N, int L, int Din, int n0, int i, int j,
-    bool diag, int act) {
-  const int c = threadIdx.x % BL, k0 = (threadIdx.x / BL) * 8;
-  float pi[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-  float pj[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-  for (int dd = 0; dd < Din; dd += DC) {
-    {
-      const int k = threadIdx.x / DC, q = threadIdx.x % DC;
-      const int n = n0 + k, d = dd + q;
-      x_s[k][q] = (n < N && d < Din) ? Xa[static_cast<size_t>(n) * Din + d] : 0.0f;
-    }
-    for (int e = threadIdx.x; e < DC * BL; e += NT) {
-      const int q = e / BL, cc = e % BL, d = dd + q;
-      const int li = i * BL + cc, lj = j * BL + cc;
-      wi_s[q][cc] = (d < Din && li < L) ? W[static_cast<size_t>(d) * L + li] : 0.0f;
-      if (!diag) wj_s[q][cc] = (d < Din && lj < L) ? W[static_cast<size_t>(d) * L + lj] : 0.0f;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int q = 0; q < DC; ++q) {
-      const float wi = wi_s[q][c];
-      const float wj = diag ? 0.0f : wj_s[q][c];
-#pragma unroll
-      for (int p = 0; p < 8; ++p) {
-        const float xv = x_s[k0 + p][q];
-        pi[p] = fmaf(xv, wi, pi[p]);
-        pj[p] = fmaf(xv, wj, pj[p]);
-      }
-    }
-    __syncthreads();
-  }
-  const int li = i * BL + c, lj = j * BL + c;
-#pragma unroll
-  for (int p = 0; p < 8; ++p) {
-    const int n = n0 + k0 + p;
-    // padding rows / columns become exact zeros after the activation
-    float h = (n < N && li < L) ? activate(pi[p] + bias[li], act) : 0.0f;
-    if (kRoundBf16) h = __bfloat162float(__float2bfloat16(h));
-    hi[k0 + p][c] = h;
-    if (!diag) {
-      float g = (n < N && lj < L) ? activate(pj[p] + bias[lj], act) : 0.0f;
-      if (kRoundBf16) g = __bfloat162float(__float2bfloat16(g));
-      hj[k0 + p][c] = g;
-    }
-  }
+// ---------------------------------------------------------------------------
+// gram_fused, stage 1: the hidden layer of one chunk, once
+// ---------------------------------------------------------------------------
+
+constexpr int XS = BL + 4;  // row stride of the staged X^T slice (2-way store conflicts)
+
+__device__ __forceinline__ void store_hidden(float* at, float h) { *at = h; }
+__device__ __forceinline__ void store_hidden(__nv_bfloat16* at, float h) {
+  *at = __float2bfloat16_rn(h);
 }
 
-template <typename T>
-__global__ void __launch_bounds__(NT) gram_fused_kernel(
-    const float* __restrict__ X, const float* __restrict__ W,
-    const float* __restrict__ bias, const T* __restrict__ Tg, float* __restrict__ G,
-    float* __restrict__ R, int N, int L, int D, int Din, int act) {
-  constexpr bool kRound = !std::is_same<T, float>::value;
-  __shared__ __align__(16) float hi_s[BK][BL];
-  __shared__ __align__(16) float hj_s[BK][BL];
-  __shared__ __align__(16) float t_s[BK][RD];
-  __shared__ __align__(16) float x_s[BK][DC];
-  __shared__ __align__(16) float wi_s[DC][BL];
-  __shared__ __align__(16) float wj_s[DC][BL];
+// Hws[a][r][l] = act(sum_d X[a][n0 + r][d] W[d][l] + b[l]) for r < rows and
+// l < ldh; columns L <= l < ldh are exact 0.  Hws has agent stride rows * ldh.
+// kVec (d_in and L multiples of 4, X and W 16-byte aligned): X and W move as
+// float4, four elements whole or masked whole; otherwise one float at a time.
+// At most 128 registers, so that two blocks share an SM.
+template <typename T, bool kVec>
+__global__ void __launch_bounds__(NT, 2) hidden_kernel(
+    const float* __restrict__ X, const float* __restrict__ W, const float* __restrict__ bias,
+    T* __restrict__ Hws, int N, int n0, int rows, int L, int ldh, int Din, int act) {
+  // two slices of 16 d_in: the next one is loaded into registers while this
+  // one is multiplied, then stored into the other buffer (one barrier a slice)
+  __shared__ __align__(16) float xs[2][BK][XS];  // X^T: xs[k][r] = X[n0 + r0 + r][d0 + k]
+  __shared__ __align__(16) float ws[2][BK][BL];  // ws[k][c] = W[d0 + k][c0 + c]
+  constexpr int PER = BK * BL / NT;              // elements of each a thread moves
+  constexpr int PER4 = PER / 4;
 
-  const int a = blockIdx.y;
-  int i, j;
-  tri_decode(blockIdx.x, i, j);
-  const float* Xa = X + static_cast<size_t>(a) * N * Din;
-  const T* Ta = Tg + static_cast<size_t>(a) * N * D;
-  const bool diag = (i == j), owns_r = (j == 0);
-  const float(*hj)[BL] = diag ? hi_s : hj_s;
+  const int a = blockIdx.z, r0 = blockIdx.y * BL, c0 = blockIdx.x * BL;
+  const float* Xa = X + (static_cast<size_t>(a) * N + n0) * Din;
   const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
 
   float acc[8][8];
@@ -313,24 +316,80 @@ __global__ void __launch_bounds__(NT) gram_fused_kernel(
 #pragma unroll
     for (int q = 0; q < 8; ++q) acc[p][q] = 0.0f;
 
-  const int n_pass = owns_r ? (D + RD - 1) / RD : 1;
-  for (int pass = 0; pass < n_pass; ++pass) {
-    const bool do_g = (pass == 0);
-    const int d0 = pass * RD;
-    float racc[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-    for (int n0 = 0; n0 < N; n0 += BK) {
-      // a later R pass needs only tile i: treat it as diagonal
-      hidden_tiles<kRound>(hi_s, hj_s, x_s, wi_s, wj_s, Xa, W, bias, N, L, Din, n0, i,
-                           j, diag || !do_g, act);
-      if (owns_r) load_t_tile(t_s, Ta, N, D, n0, d0);
-      __syncthreads();
-      if (do_g) g_update(hi_s, hj, ty, tx, acc);
-      if (owns_r) r_update(hi_s, t_s, racc);
-      __syncthreads();
+  float xr[PER], wr[PER];
+  auto fetch = [&](int d0) {
+    if constexpr (kVec) {
+      const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+      for (int u = 0; u < PER4; ++u) {
+        const int e = threadIdx.x + u * NT;
+        const int r = e / (BK / 4), dx = d0 + (e % (BK / 4)) * 4;
+        const float4 x = (r0 + r < rows && dx < Din)
+            ? *reinterpret_cast<const float4*>(Xa + static_cast<size_t>(r0 + r) * Din + dx)
+            : zero;
+        const int dw = d0 + e / (BL / 4), l = c0 + (e % (BL / 4)) * 4;
+        const float4 w = (dw < Din && l < L)
+            ? *reinterpret_cast<const float4*>(W + static_cast<size_t>(dw) * L + l)
+            : zero;
+        xr[4 * u] = x.x, xr[4 * u + 1] = x.y, xr[4 * u + 2] = x.z, xr[4 * u + 3] = x.w;
+        wr[4 * u] = w.x, wr[4 * u + 1] = w.y, wr[4 * u + 2] = w.z, wr[4 * u + 3] = w.w;
+      }
+    } else {
+#pragma unroll
+      for (int u = 0; u < PER; ++u) {
+        const int e = threadIdx.x + u * NT;
+        const int r = e / BK, kx = e % BK, dx = d0 + kx;  // neighbours read neighbouring d
+        xr[u] = (r0 + r < rows && dx < Din) ? Xa[static_cast<size_t>(r0 + r) * Din + dx] : 0.0f;
+        const int kw = e / BL, c = e % BL, dw = d0 + kw, l = c0 + c;
+        wr[u] = (dw < Din && l < L) ? W[static_cast<size_t>(dw) * L + l] : 0.0f;
+      }
     }
-    if (owns_r) store_r(R + static_cast<size_t>(a) * L * D, racc, L, D, i, d0);
+  };
+  auto stash = [&](int buf) {
+    if constexpr (kVec) {
+#pragma unroll
+      for (int u = 0; u < PER4; ++u) {
+        const int e = threadIdx.x + u * NT;
+        const int r = e / (BK / 4), kx = (e % (BK / 4)) * 4;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) xs[buf][kx + j][r] = xr[4 * u + j];
+        *reinterpret_cast<float4*>(&ws[buf][e / (BL / 4)][(e % (BL / 4)) * 4]) =
+            make_float4(wr[4 * u], wr[4 * u + 1], wr[4 * u + 2], wr[4 * u + 3]);
+      }
+    } else {
+#pragma unroll
+      for (int u = 0; u < PER; ++u) {
+        const int e = threadIdx.x + u * NT;
+        xs[buf][e % BK][e / BK] = xr[u];
+        ws[buf][e / BL][e % BL] = wr[u];
+      }
+    }
+  };
+  fetch(0);
+  stash(0);
+  __syncthreads();
+  for (int d0 = 0, buf = 0; d0 < Din; d0 += BK, buf ^= 1) {
+    const bool more = d0 + BK < Din;
+    if (more) fetch(d0 + BK);               // in flight during the products
+    g_update(xs[buf], ws[buf], ty, tx, acc);  // d_in in order, one fmaf per step
+    if (more) stash(buf ^ 1);               // the slot read one slice ago
+    __syncthreads();
   }
-  store_g(G + static_cast<size_t>(a) * L * L, acc, L, i, j, ty, tx);
+
+  T* Ha = Hws + static_cast<size_t>(a) * rows * ldh;
+#pragma unroll
+  for (int p = 0; p < 8; ++p) {
+    const int r = r0 + tile_index(ty, p);
+    if (r >= rows) continue;
+#pragma unroll
+    for (int q = 0; q < 8; ++q) {
+      const int l = c0 + tile_index(tx, q);
+      // padding columns become exact zeros after the activation
+      if (l < ldh)
+        store_hidden(Ha + static_cast<size_t>(r) * ldh + l,
+                     l < L ? activate(acc[p][q] + bias[l], act) : 0.0f);
+    }
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -584,16 +643,252 @@ __global__ void __launch_bounds__(NT) gram_tri_q_kernel(
         const int r = q_row(wm, mi, lane, e), c = q_col(wn, ni, lane, e);
         const int gr = i * BL + r, gc = j * BL + c;
         // a diagonal tile writes its lower half and mirrors it: exact symmetry
-        if (gr < L && gc < L && (!diag || r >= c)) {
-          Ga[static_cast<size_t>(gr) * L + gc] = acc[mi][ni][e];
-          Ga[static_cast<size_t>(gc) * L + gr] = acc[mi][ni][e];
+        if (gr < L && gc < L && (!diag || r >= c))
+          store_g_pair(Ga, L, gr, gc, acc[mi][ni][e], false);
+      }
+}
+
+// ---------------------------------------------------------------------------
+// gram_fused, stage 2 in bf16: the chunk's G on the tensor cores
+// ---------------------------------------------------------------------------
+
+constexpr int MK = 32;       // samples per pipeline stage (two k = 16 mma steps)
+constexpr int MS = BL + 8;   // bf16 row stride: ldmatrix's 8 rows hit 8 distinct bank quads
+constexpr int MSTAGES = 4;   // stages in flight: copies run three stages ahead
+constexpr int TS = RD + 8;   // bf16 row stride of a staged T slice
+constexpr int TPER = MK * RD / NT;  // T elements a thread stages per stage
+
+static_assert(MK * BL / 8 == 2 * NT, "two 16-byte copies per thread per H tile");
+
+struct MmaStage {
+  __nv_bfloat16 hi[MK][MS];  // samples x the 128 columns of tile i
+  __nv_bfloat16 hj[MK][MS];  // ... of tile j (unused on a diagonal tile)
+  __nv_bfloat16 t[MK][TS];   // samples x T's 16 columns of the pass (R owners)
+};
+constexpr size_t kMmaSmem = MSTAGES * sizeof(MmaStage);  // dynamic, > 48 KB
+
+// Rows n0 .. n0 + MK - 1 of the 128 columns from col0 of a row-major bf16 H
+// (row stride ldh, a multiple of 8) into dst; rows >= rows and columns >= ldh
+// are zero-filled.
+__device__ __forceinline__ void load_h_bf16(__nv_bfloat16 (*dst)[MS],
+                                            const __nv_bfloat16* __restrict__ H, int rows,
+                                            int ldh, int n0, int col0) {
+  for (int e = threadIdx.x; e < MK * (BL / 8); e += NT) {
+    const int k = e / (BL / 8), c = (e % (BL / 8)) * 8;
+    const int n = n0 + k, l = col0 + c;
+    const bool valid = n < rows && l < ldh;
+    cp_async16(&dst[k][c], valid ? H + static_cast<size_t>(n) * ldh + l : H, valid);
+  }
+}
+
+// One stage (MK samples) of the warp's 64 x 32 sub-tile.  A = Hi^T, B = Hj,
+// both from row-major [sample][column] tiles: ldmatrix.trans hands each
+// thread the sample pairs an mma fragment holds.
+__device__ __forceinline__ void mma_update(const __nv_bfloat16 (*hi)[MS],
+                                           const __nv_bfloat16 (*hj)[MS], int wm, int wn,
+                                           int lane, float (&acc)[4][4][4]) {
+  const int mat = lane >> 3, row = lane & 7;
+#pragma unroll
+  for (int kk = 0; kk < MK; kk += 16) {
+    uint32_t a[4][4], b[4][2];
+#pragma unroll
+    for (int mi = 0; mi < 4; ++mi)  // (k 0-7 | 8-15) x (rows 0-7 | 8-15) -> a0 a1 a2 a3
+      ldsm_x4_trans(a[mi], &hi[kk + (mat >> 1) * 8 + row][wm * WM + mi * 16 + (mat & 1) * 8]);
+#pragma unroll
+    for (int np = 0; np < 2; ++np) {  // two 8-column fragments per load
+      uint32_t r[4];
+      ldsm_x4_trans(r, &hj[kk + (mat & 1) * 8 + row][wn * WN + np * 16 + (mat >> 1) * 8]);
+      b[2 * np][0] = r[0];
+      b[2 * np][1] = r[1];
+      b[2 * np + 1][0] = r[2];
+      b[2 * np + 1][1] = r[3];
+    }
+#pragma unroll
+    for (int mi = 0; mi < 4; ++mi)
+#pragma unroll
+      for (int ni = 0; ni < 4; ++ni) mma_bf16(acc[mi][ni], a[mi], b[ni][0], b[ni][1]);
+  }
+}
+
+// One stage of R's 16 x 16 sub-tile of warp (wm, wn): rows wm * 64 + wn * 16
+// of tile i against the pass's 16 columns of T, two 8-column fragments.
+__device__ __forceinline__ void mma_r_update(const __nv_bfloat16 (*hi)[MS],
+                                             const __nv_bfloat16 (*t)[TS], int wm, int wn,
+                                             int lane, float (&racc)[2][4]) {
+  const int mat = lane >> 3, row = lane & 7;
+#pragma unroll
+  for (int kk = 0; kk < MK; kk += 16) {
+    uint32_t a[4], b[4];
+    ldsm_x4_trans(a, &hi[kk + (mat >> 1) * 8 + row][wm * WM + wn * 16 + (mat & 1) * 8]);
+    ldsm_x4_trans(b, &t[kk + (mat & 1) * 8 + row][(mat >> 1) * 8]);
+    mma_bf16(racc[0], a, b[0], b[1]);
+    mma_bf16(racc[1], a, b[2], b[3]);
+  }
+}
+
+// R's sub-tile of one warp into R (m's slice, L x D): store or add
+__device__ __forceinline__ void store_r_mma(float* __restrict__ Ra, const float (&racc)[2][4],
+                                            int L, int D, int i, int d0, int wm, int wn,
+                                            int lane, bool accumulate) {
+#pragma unroll
+  for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int l = i * BL + wm * WM + wn * 16 + (lane >> 2) + (e >= 2 ? 8 : 0);
+      const int d = d0 + nt * 8 + (lane & 3) * 2 + (e & 1);
+      if (l < L && d < D) {
+        float* at = Ra + static_cast<size_t>(l) * D + d;
+        *at = accumulate ? *at + racc[nt][e] : racc[nt][e];
+      }
+    }
+}
+
+// G and R of one gram_fused chunk in bf16: H (m, N, ldh) bf16 workspace, T
+// bf16 with agent stride t_stride; stores (first chunk) or adds (later ones).
+// A ring of MSTAGES stages in dynamic shared memory, one barrier a stage.
+// At most 128 registers, so that two blocks (16 warps) share an SM.
+__global__ void __launch_bounds__(NT, 2) gram_mma_kernel(
+    const __nv_bfloat16* __restrict__ H, const __nv_bfloat16* __restrict__ Tg,
+    float* __restrict__ G, float* __restrict__ R, int N, int L, int ldh, int D,
+    size_t t_stride, bool accumulate) {
+  extern __shared__ float4 smem4[];
+  MmaStage* ring = reinterpret_cast<MmaStage*>(smem4);
+
+  const int a = blockIdx.y;
+  int i, j;
+  tri_decode(blockIdx.x, i, j);
+  const __nv_bfloat16* Ha = H + static_cast<size_t>(a) * N * ldh;
+  const __nv_bfloat16* Ta = Tg + static_cast<size_t>(a) * t_stride;
+  const bool diag = (i == j), owns_r = (j == 0);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int wm = warp / (BL / WN), wn = warp % (BL / WN);
+
+  float acc[4][4][4];
+#pragma unroll
+  for (int mi = 0; mi < 4; ++mi)
+#pragma unroll
+    for (int ni = 0; ni < 4; ++ni)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mi][ni][e] = 0.0f;
+
+  const int steps = (N + MK - 1) / MK;
+  const int n_pass = owns_r ? (D + RD - 1) / RD : 1;
+  for (int pass = 0; pass < n_pass; ++pass) {
+    const bool do_g = (pass == 0);
+    const int d0 = pass * RD;
+    float racc[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
+    // T (rows of D bf16, no alignment to copy by) goes through registers one
+    // stage ahead of its slot, so its loads are in flight during a stage
+    __nv_bfloat16 treg[TPER];
+    auto fetch_t = [&](int step) {
+#pragma unroll
+      for (int u = 0; u < TPER; ++u) {
+        const int e = threadIdx.x + u * NT, n = step * MK + e / RD, d = d0 + e % RD;
+        treg[u] = (n < N && d < D) ? Ta[static_cast<size_t>(n) * D + d]
+                                   : __float2bfloat16_rn(0.f);
+      }
+    };
+    auto stash_t = [&](int step) {
+#pragma unroll
+      for (int u = 0; u < TPER; ++u) {
+        const int e = threadIdx.x + u * NT;
+        ring[step % MSTAGES].t[e / RD][e % RD] = treg[u];
+      }
+    };
+    auto load_h = [&](int step) {
+      MmaStage& sg = ring[step % MSTAGES];
+      load_h_bf16(sg.hi, Ha, N, ldh, step * MK, i * BL);
+      if (do_g && !diag) load_h_bf16(sg.hj, Ha, N, ldh, step * MK, j * BL);
+    };
+    for (int s = 0; s < MSTAGES - 1; ++s) {
+      if (s < steps) {
+        load_h(s);
+        if (owns_r) {
+          fetch_t(s);
+          stash_t(s);
         }
+      }
+      cp_async_commit();
+    }
+    if (owns_r && MSTAGES - 1 < steps) fetch_t(MSTAGES - 1);
+    for (int s = 0; s < steps; ++s) {
+      cp_async_wait<MSTAGES - 2>();  // stage s has landed (this thread's copies)
+      __syncthreads();  // ... everyone's; and stage s - 1 is read by everyone
+      if (s + MSTAGES - 1 < steps) {  // into stage s - 1's slot
+        load_h(s + MSTAGES - 1);
+        if (owns_r) stash_t(s + MSTAGES - 1);
+      }
+      cp_async_commit();
+      if (owns_r && s + MSTAGES < steps) fetch_t(s + MSTAGES);
+      const MmaStage& sg = ring[s % MSTAGES];
+      if (do_g) mma_update(sg.hi, diag ? sg.hi : sg.hj, wm, wn, lane, acc);
+      if (owns_r) mma_r_update(sg.hi, sg.t, wm, wn, lane, racc);
+    }
+    __syncthreads();  // the ring is read before another R pass refills it
+    if (owns_r)
+      store_r_mma(R + static_cast<size_t>(a) * L * D, racc, L, D, i, d0, wm, wn, lane,
+                  accumulate);
+  }
+  float* Ga = G + static_cast<size_t>(a) * L * L;
+#pragma unroll
+  for (int mi = 0; mi < 4; ++mi)
+#pragma unroll
+    for (int ni = 0; ni < 4; ++ni)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = q_row(wm, mi, lane, e), c = q_col(wn, ni, lane, e);
+        const int gr = i * BL + r, gc = j * BL + c;
+        // a diagonal tile writes its lower half and mirrors it: exact symmetry
+        if (gr < L && gc < L && (!diag || r >= c))
+          store_g_pair(Ga, L, gr, gc, acc[mi][ni][e], accumulate);
       }
 }
 
 inline dim3 tri_grid(int m, int L) {
   const int nl = (L + BL - 1) / BL;
   return dim3(nl * (nl + 1) / 2, m);
+}
+
+// One chunk of gram_fused: sample rows [n0, n0 + rows) of all m agents.  The
+// hidden layer goes into Hws (m * rows * ldh elements of the compute dtype, as
+// the caller allocated it: ldh = L in fp32; in bf16 at least L, a multiple of
+// 8, and Hws 16-byte aligned, for the Gram grid's cp.async), then the chunk's
+// G and R go into the outputs.  Two grids per chunk on the caller's stream.
+template <typename T>
+int fused_chunk(const void* X, const void* W, const void* b, const void* Tg, void* G,
+                void* R, void* Hws, int m, int N, int L, int D, int Din, int n0, int rows,
+                int ldh, int act, void* stream) {
+  cudaGetLastError();
+  const bool accumulate = n0 > 0;  // the first chunk stores, each later chunk adds
+  constexpr bool kBf16 = std::is_same<T, __nv_bfloat16>::value;
+  if (kBf16 ? (ldh < L || ldh % 8 != 0 || !aligned16(Hws)) : ldh != L)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const auto st = static_cast<cudaStream_t>(stream);
+  const dim3 hgrid((ldh + BL - 1) / BL, (rows + BL - 1) / BL, m);
+  // float4 loads only where every row of X and W starts on 16 bytes
+  const bool vec = Din % 4 == 0 && L % 4 == 0 && aligned16(X, W);
+  const auto hidden = vec ? hidden_kernel<T, true> : hidden_kernel<T, false>;
+  hidden<<<hgrid, NT, 0, st>>>(static_cast<const float*>(X), static_cast<const float*>(W),
+                               static_cast<const float*>(b), static_cast<T*>(Hws), N, n0, rows,
+                               L, ldh, Din, act);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const T* Tc = static_cast<const T*>(Tg) + static_cast<size_t>(n0) * D;
+  const size_t t_stride = static_cast<size_t>(N) * D;
+  if constexpr (kBf16) {
+    const cudaError_t attr = cudaFuncSetAttribute(
+        gram_mma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(kMmaSmem));
+    if (attr != cudaSuccess) return static_cast<int>(attr);
+    gram_mma_kernel<<<tri_grid(m, L), NT, kMmaSmem, st>>>(static_cast<const T*>(Hws), Tc,
+                                                   static_cast<float*>(G),
+                                                   static_cast<float*>(R), rows, L, ldh, D,
+                                                   t_stride, accumulate);
+  } else {
+    gram_tri_kernel<float><<<tri_grid(m, L), NT, 0, st>>>(
+        static_cast<const float*>(Hws), Tc, static_cast<float*>(G), static_cast<float*>(R),
+        rows, L, D, t_stride, accumulate);
+  }
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -605,7 +900,7 @@ int gram_tri_f32(const void* H, const void* T, void* G, void* R, int m, int N, i
   cudaGetLastError();
   gram_tri_kernel<float><<<tri_grid(m, L), NT, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(H), static_cast<const float*>(T), static_cast<float*>(G),
-      static_cast<float*>(R), N, L, D);
+      static_cast<float*>(R), N, L, D, static_cast<size_t>(N) * D, false);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -615,29 +910,23 @@ int gram_tri_bf16(const void* H, const void* T, void* G, void* R, int m, int N, 
   gram_tri_kernel<__nv_bfloat16>
       <<<tri_grid(m, L), NT, 0, static_cast<cudaStream_t>(stream)>>>(
           static_cast<const __nv_bfloat16*>(H), static_cast<const __nv_bfloat16*>(T),
-          static_cast<float*>(G), static_cast<float*>(R), N, L, D);
+          static_cast<float*>(G), static_cast<float*>(R), N, L, D,
+          static_cast<size_t>(N) * D, false);
   return static_cast<int>(cudaGetLastError());
 }
 
-int gram_fused_f32(const void* X, const void* W, const void* b, const void* T, void* G,
-                   void* R, int m, int N, int L, int D, int Din, int act, void* stream) {
-  cudaGetLastError();
-  gram_fused_kernel<float><<<tri_grid(m, L), NT, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(X), static_cast<const float*>(W),
-      static_cast<const float*>(b), static_cast<const float*>(T), static_cast<float*>(G),
-      static_cast<float*>(R), N, L, D, Din, act);
-  return static_cast<int>(cudaGetLastError());
+int gram_fused_chunk_f32(const void* X, const void* W, const void* b, const void* T,
+                         void* G, void* R, void* Hws, int m, int N, int L, int D, int Din,
+                         int n0, int rows, int ldh, int act, void* stream) {
+  return fused_chunk<float>(X, W, b, T, G, R, Hws, m, N, L, D, Din, n0, rows, ldh, act,
+                            stream);
 }
 
-int gram_fused_bf16(const void* X, const void* W, const void* b, const void* T, void* G,
-                    void* R, int m, int N, int L, int D, int Din, int act, void* stream) {
-  cudaGetLastError();
-  gram_fused_kernel<__nv_bfloat16>
-      <<<tri_grid(m, L), NT, 0, static_cast<cudaStream_t>(stream)>>>(
-          static_cast<const float*>(X), static_cast<const float*>(W),
-          static_cast<const float*>(b), static_cast<const __nv_bfloat16*>(T),
-          static_cast<float*>(G), static_cast<float*>(R), N, L, D, Din, act);
-  return static_cast<int>(cudaGetLastError());
+int gram_fused_chunk_bf16(const void* X, const void* W, const void* b, const void* T,
+                          void* G, void* R, void* Hws, int m, int N, int L, int D, int Din,
+                          int n0, int rows, int ldh, int act, void* stream) {
+  return fused_chunk<__nv_bfloat16>(X, W, b, T, G, R, Hws, m, N, L, D, Din, n0, rows, ldh,
+                                    act, stream);
 }
 
 int gram_tri_q(const void* Hq, const void* S, const void* T, void* G, void* R, int m,

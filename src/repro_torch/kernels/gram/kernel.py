@@ -7,7 +7,15 @@
 
 A wrapper given CPU tensors returns its kernel's plain version
 (``ref.py``); given CUDA tensors it launches the kernel or raises.
-``LAUNCHES`` counts kernel launches per wrapper, and only those.
+``LAUNCHES`` counts kernel launches per wrapper call, and only those:
+``gram_fused`` counts one per call, however many chunks (two grids each)
+it runs.
+
+``gram_fused`` computes the hidden layer once per call, a chunk of whole
+sample rows of all m agents at a time, into a workspace that
+``FUSED_WORKSPACE_BYTES`` bounds (``fused_chunks`` is the plan), then adds
+each chunk's statistics into G and R; ``LAST_FUSED`` records what its last
+call on the card launched.
 """
 
 from __future__ import annotations
@@ -30,6 +38,14 @@ from repro_torch.kernels.gram.ref import (
 SOURCE = Path(__file__).resolve().parent / "csrc" / "gram.cu"
 ACTIVATION_CODES = {"sigmoid": 0, "tanh": 1, "relu": 2, "gelu": 3}
 LAUNCHES = {"gram_tri": 0, "gram_fused": 0, "gram_tri_q": 0, "gram_dense": 0}
+# gram_fused's hidden-layer workspace, m x rows x L in the compute dtype: at
+# most this many bytes, whatever N (m 8, N 2048, L 2048 fp32 is 128 MiB, one
+# chunk; N 8192 is two chunks in fp32 and one in bf16)
+FUSED_WORKSPACE_BYTES = 256 * 2**20
+# what the last gram_fused call on the card launched, counted where it
+# launches: chunks, sample rows its hidden-layer grids covered (N when H is
+# computed once), and its workspace's bytes
+LAST_FUSED = {"chunks": 0, "hidden_rows": 0, "workspace_bytes": 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -49,9 +65,9 @@ def library() -> ctypes.CDLL:
         fn = getattr(lib, name)
         fn.argtypes = [_P, _P, _P, _P, _I, _I, _I, _I, _P]
         fn.restype = _I
-    for name in ("gram_fused_f32", "gram_fused_bf16"):
+    for name in ("gram_fused_chunk_f32", "gram_fused_chunk_bf16"):
         fn = getattr(lib, name)
-        fn.argtypes = [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]
+        fn.argtypes = [_P] * 7 + [_I] * 9 + [_P]
         fn.restype = _I
     lib.gram_tri_q.argtypes = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]
     lib.gram_tri_q.restype = _I
@@ -70,6 +86,23 @@ def _check_sizes(m, *dims):
             f"Gram kernels need 1 <= m <= 65535 and every size in "
             f"[1, 2^31), got m={m}, sizes {dims}"
         )
+
+
+def fused_workspace_width(L: int, precision: str) -> int:
+    """Row width of gram_fused's workspace: L in fp32; in bf16 L rounded up
+    to 8, so that every row starts on 16 bytes for the kernel's copies."""
+    return L if precision == "fp32" else -(-L // 8) * 8
+
+
+def fused_chunks(m: int, N: int, L: int, precision: str):
+    """gram_fused's plan: [(n0, rows), ...], consecutive chunks covering the
+    sample axis [0, N) in order, each the most rows whose hidden layer for
+    all m agents (m x rows x ``fused_workspace_width`` in the compute dtype)
+    fits ``FUSED_WORKSPACE_BYTES``; at least one row a chunk."""
+    row_bytes = m * fused_workspace_width(L, precision) * (
+        4 if precision == "fp32" else 2)
+    rows = max(1, min(N, FUSED_WORKSPACE_BYTES // row_bytes))
+    return [(n0, min(rows, N - n0)) for n0 in range(0, N, rows)]
 
 
 def gram_tri(H: torch.Tensor, T: torch.Tensor):
@@ -101,11 +134,13 @@ def gram_tri(H: torch.Tensor, T: torch.Tensor):
 def gram_fused(X: torch.Tensor, W: torch.Tensor, b: torch.Tensor,
                T: torch.Tensor, activation: str = "sigmoid",
                precision: str = "fp32"):
-    """Gram statistics of ``H = act(X W + b)`` with H built in-kernel.
+    """Gram statistics of ``H = act(X W + b)``, H never given by the caller.
 
     X: (m, N, d_in) fp32; W: (d_in, L) fp32; b: (L,) fp32; T: (m, N, D),
     fp32 for ``precision="fp32"`` and bf16 for ``"bf16"`` (which also rounds
-    the hidden tiles to bf16).  Returns (G (m, L, L), R (m, L, D)) fp32."""
+    H to bf16).  Returns (G (m, L, L), exactly symmetric, R (m, L, D)) fp32.
+    H is computed once, chunk by chunk (``fused_chunks``), into a workspace
+    of at most ``FUSED_WORKSPACE_BYTES``."""
     if activation not in ACTIVATION_CODES:
         raise ValueError(
             f"unknown activation {activation!r}; expected one of "
@@ -131,14 +166,27 @@ def gram_fused(X: torch.Tensor, W: torch.Tensor, b: torch.Tensor,
         )
     _check_sizes(m, N, L, D, d_in)
     lib = library()
-    fn = lib.gram_fused_bf16 if precision == "bf16" else lib.gram_fused_f32
+    fn = (lib.gram_fused_chunk_bf16 if precision == "bf16"
+          else lib.gram_fused_chunk_f32)
+    chunks = fused_chunks(m, N, L, precision)
+    width = fused_workspace_width(L, precision)
     G = torch.empty((m, L, L), dtype=torch.float32, device=X.device)
     R = torch.empty((m, L, D), dtype=torch.float32, device=X.device)
+    workspace = torch.empty(m * chunks[0][1] * width, dtype=t_dtype,
+                            device=X.device)
     stream = torch.cuda.current_stream(X.device).cuda_stream
-    raise_on(fn(X.data_ptr(), W.data_ptr(), b.data_ptr(), T.data_ptr(),
-                G.data_ptr(), R.data_ptr(), m, N, L, D, d_in,
-                ACTIVATION_CODES[activation], stream), "gram_fused")
+    # the first chunk stores G and R, each later one adds into them
+    launched = hidden_rows = 0
+    for n0, rows in chunks:
+        raise_on(fn(X.data_ptr(), W.data_ptr(), b.data_ptr(), T.data_ptr(),
+                    G.data_ptr(), R.data_ptr(), workspace.data_ptr(), m, N, L,
+                    D, d_in, n0, rows, width, ACTIVATION_CODES[activation],
+                    stream), "gram_fused")
+        launched += 1
+        hidden_rows += rows
     LAUNCHES["gram_fused"] += 1
+    LAST_FUSED.update(chunks=launched, hidden_rows=hidden_rows,
+                      workspace_bytes=workspace.nbytes)
     return G, R
 
 

@@ -3,8 +3,9 @@
 ``repro/kernels/swa/kernel.py::swa_pallas``.
 
 Given CPU tensors it returns the plain version (``ref.swa_ref``); given
-CUDA tensors it launches the kernel or raises.  ``LAUNCHES`` counts kernel
-launches, and only those.
+CUDA tensors it launches the kernel or raises: fp32 inputs the fp32 kernel
+(CUDA cores), bf16 inputs the bf16 one (tensor cores, p split into two bf16
+terms; 16-byte copies where D % 8 == 0 and q, k, v start on 16 bytes).  ``LAUNCHES`` counts kernel launches, and only those.
 """
 
 from __future__ import annotations
@@ -21,7 +22,7 @@ from repro_torch.kernels.swa.ref import swa_ref
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "swa.cu"
 MAX_HEAD_DIM = 256
-BLOCK_ROWS = 64      # the kernel's query tile (BQ in csrc/swa.cu)
+BLOCK_ROWS = 64      # both kernels' query tile (BQ, TQ in csrc/swa.cu)
 LAUNCHES = {"swa": 0}
 
 _P = ctypes.c_void_p
@@ -42,14 +43,15 @@ def library() -> ctypes.CDLL:
         fn.argtypes = [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, ctypes.c_float,
                        _P]
         fn.restype = _I
-    lib.swa_smem_bytes.argtypes = [_I]
+    lib.swa_smem_bytes.argtypes = [_I, _I]
     lib.swa_smem_bytes.restype = _I
     return lib
 
 
-def smem_bytes(D: int) -> int:
-    """Dynamic shared memory one block of the kernel takes at head dim D."""
-    return library().swa_smem_bytes(D)
+def smem_bytes(D: int, dtype: torch.dtype) -> int:
+    """Dynamic shared memory one block of the ``dtype`` kernel takes at head
+    dim D."""
+    return library().swa_smem_bytes(D, int(dtype == torch.bfloat16))
 
 
 def swa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -58,7 +60,8 @@ def swa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
     q: (B, H, S, D); k, v: (B, KV, S, D), all fp32 or all bf16, contiguous,
     H a multiple of KV, D <= 256.  Query i attends key j iff ``j <= i`` and
-    ``i - j < window``.  Returns (B, H, S, D) in q's dtype; fp32 math."""
+    ``i - j < window``.  Returns (B, H, S, D) in q's dtype.  fp32: fp32
+    math; bf16: exact bf16 products summed in fp32, p kept to ~16 bits."""
     forward_only("swa", q, k, v)
     if window < 1:
         raise ValueError(f"window must be >= 1, got {window}")

@@ -89,6 +89,98 @@ def test_gram_fused_matches_plain(gen, m, N, d_in, L, D, activation,
     assert _rel(G, Gr) <= TOL[precision] and _rel(R, Rr) <= TOL[precision]
 
 
+@pytest.mark.parametrize("activation", ["sigmoid", "tanh", "relu", "gelu"])
+@pytest.mark.parametrize("precision", ["fp32", "bf16"])
+def test_gram_fused_over_several_chunks(gen, monkeypatch, activation,
+                                        precision):
+    """A workspace budget of 350 rows runs N = 1000 in chunks of 350, 350
+    and a ragged 300: later chunks add into G and R, G stays exactly
+    symmetric, and the call counts one launch."""
+    m, N, d_in, L, D = 3, 1000, 70, 300, 3
+    row_bytes = m * kernel.fused_workspace_width(L, precision) * (
+        4 if precision == "fp32" else 2)
+    monkeypatch.setattr(kernel, "FUSED_WORKSPACE_BYTES", 350 * row_bytes)
+    assert kernel.fused_chunks(m, N, L, precision) == [
+        (0, 350), (350, 350), (700, 300)]
+    X = torch.randn(m, N, d_in, device="cuda", generator=gen)
+    W = torch.randn(d_in, L, device="cuda", generator=gen) / d_in**0.5
+    b = torch.randn(L, device="cuda", generator=gen)
+    T = torch.randn(m, N, D, device="cuda", generator=gen)
+    if precision == "bf16":
+        T = T.bfloat16()
+    before = kernel.LAUNCHES["gram_fused"]
+    G, R = kernel.gram_fused(X, W, b, T, activation, precision)
+    torch.cuda.synchronize()
+    assert kernel.LAUNCHES["gram_fused"] == before + 1
+    # what the wrapper launched: three chunks, the hidden layer once per row
+    assert kernel.LAST_FUSED == {"chunks": 3, "hidden_rows": N,
+                                 "workspace_bytes": 350 * row_bytes}
+    Gr, Rr = ref.gram_fused_ref(X, W, b, T, activation, precision)
+    assert torch.equal(G, G.mT)
+    assert _rel(G, Gr) <= TOL[precision] and _rel(R, Rr) <= TOL[precision]
+
+
+def _off16(shape, dtype, gen):
+    """A contiguous tensor whose storage starts 1 element past a 16-byte
+    boundary (a view of a larger buffer)."""
+    n = 1
+    for d in shape:
+        n *= d
+    buf = torch.randn(n + 1, device="cuda", generator=gen).to(dtype)
+    t = buf[1:].view(shape)
+    assert t.is_contiguous() and t.data_ptr() % 16 != 0
+    return t
+
+
+@pytest.mark.parametrize("precision", ["fp32", "bf16"])
+def test_gram_fused_takes_views_off_16_bytes(gen, precision):
+    """d_in and L multiples of 4 with X and W off 16 bytes: the hidden layer
+    takes its one-float loads, not float4 (which would fault)."""
+    m, N, d_in, L, D = 2, 33, 8, 40, 3
+    X = _off16((m, N, d_in), torch.float32, gen)
+    W = _off16((d_in, L), torch.float32, gen)
+    b = torch.randn(L, device="cuda", generator=gen)
+    T = torch.randn(m, N, D, device="cuda", generator=gen)
+    if precision == "bf16":
+        T = T.bfloat16()
+    G, R = kernel.gram_fused(X, W, b, T, "tanh", precision)
+    torch.cuda.synchronize()
+    Gr, Rr = ref.gram_fused_ref(X, W, b, T, "tanh", precision)
+    assert torch.equal(G, G.mT)
+    assert _rel(G, Gr) <= TOL[precision] and _rel(R, Rr) <= TOL[precision]
+
+
+@pytest.mark.parametrize("precision", ["fp32", "bf16"])
+def test_gram_fused_chunk_refuses_another_workspace_row_width(gen, precision):
+    """The C entry takes the workspace's row width from the caller and
+    refuses one its Gram grid cannot read (fp32: not L; bf16: below L or not
+    a multiple of 8) before it launches anything."""
+    m, N, d_in, L, D = 1, 4, 4, 12, 1
+    t_dtype = torch.bfloat16 if precision == "bf16" else torch.float32
+    X = torch.randn(m, N, d_in, device="cuda", generator=gen)
+    W = torch.randn(d_in, L, device="cuda", generator=gen)
+    b = torch.randn(L, device="cuda", generator=gen)
+    T = torch.randn(m, N, D, device="cuda", generator=gen).to(t_dtype)
+    G = torch.empty(m, L, L, device="cuda")
+    R = torch.empty(m, L, D, device="cuda")
+    ws = torch.empty(m * N * 32, dtype=t_dtype, device="cuda")
+    lib = kernel.library()
+    fn = (lib.gram_fused_chunk_bf16 if precision == "bf16"
+          else lib.gram_fused_chunk_f32)
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def call(ldh):
+        return fn(X.data_ptr(), W.data_ptr(), b.data_ptr(), T.data_ptr(),
+                  G.data_ptr(), R.data_ptr(), ws.data_ptr(), m, N, L, D, d_in,
+                  0, N, ldh, 0, stream)
+
+    bad = [L - 1, L + 4] if precision == "fp32" else [L - 4, L + 1]
+    for ldh in bad:
+        assert call(ldh) != 0, ldh
+    assert call(kernel.fused_workspace_width(L, precision)) == 0
+    torch.cuda.synchronize()
+
+
 @pytest.mark.parametrize("m,N,L,D,bn,bl", [
     (1, 1, 1, 1, 8, 128),        # one row, one column
     (2, 96, 48, 3, 32, 32),      # the reference's int8 test shape
@@ -188,6 +280,44 @@ def test_swa_matches_plain(gen, B, H, KV, S, D, W, precision):
     assert _norm_rel(o.float(), plain) <= SWA_NORM_TOL[precision]
     # the op launches the same kernel on the same inputs
     assert torch.equal(swa_ops.swa_attention(q, k, v, window=W), o)
+
+
+@pytest.mark.parametrize("H,KV", [(4, 1), (8, 2)])    # MQA, H / KV = 4
+@pytest.mark.parametrize("D", [1, 64, 120, 256])
+# W: 1; the kv tiles (32 keys at D = 256, else 64) and one more; W > S
+@pytest.mark.parametrize("W", [1, 33, 64, 65, 1000])
+@pytest.mark.parametrize("S", [63, 65])               # the 64-row tiles +- 1
+def test_swa_bf16_at_the_tile_edges(gen, S, W, D, H, KV):
+    """The bf16 kernel (64 query rows and 64 keys a tile) at the edges of
+    its tiles and of the band, against the plain version in max and in
+    norm; the op launches the same kernel."""
+    q = torch.randn(2, H, S, D, device="cuda", generator=gen).bfloat16()
+    k = torch.randn(2, KV, S, D, device="cuda", generator=gen).bfloat16()
+    v = torch.randn(2, KV, S, D, device="cuda", generator=gen).bfloat16()
+    before = swa_kernel.LAUNCHES["swa"]
+    o = swa_kernel.swa(q, k, v, W)
+    torch.cuda.synchronize()
+    assert swa_kernel.LAUNCHES["swa"] == before + 1
+    assert o.dtype == torch.bfloat16 and torch.isfinite(o.float()).all()
+    plain = swa_ref(q, k, v, W).float()
+    assert _rel(o.float(), plain) <= TOL["bf16"]
+    assert _norm_rel(o.float(), plain) <= SWA_NORM_TOL["bf16"]
+    assert torch.equal(swa_ops.swa_attention(q, k, v, window=W), o)
+
+
+@pytest.mark.parametrize("D", [64, 120])
+def test_swa_bf16_takes_views_off_16_bytes(gen, D):
+    """q, k and v off 16 bytes: the bf16 kernel stages rows with plain
+    loads, not cp.async (which would fault), and still matches."""
+    B, H, KV, S, W = 1, 4, 2, 130, 40
+    q = _off16((B, H, S, D), torch.bfloat16, gen)
+    k = _off16((B, KV, S, D), torch.bfloat16, gen)
+    v = _off16((B, KV, S, D), torch.bfloat16, gen)
+    o = swa_kernel.swa(q, k, v, W)
+    torch.cuda.synchronize()
+    plain = swa_ref(q, k, v, W).float()
+    assert _rel(o.float(), plain) <= TOL["bf16"]
+    assert _norm_rel(o.float(), plain) <= SWA_NORM_TOL["bf16"]
 
 
 @pytest.mark.parametrize("B,S,D", [(3, 1000, 300), (2, 17, 130), (1, 1, 1),

@@ -171,6 +171,66 @@ def test_mixed_devices_raise():
         tkernel.gram_tri(H, T)
 
 
+# ------------------------------------------------- gram_fused's chunk plan
+
+PLAN_CASES = [(8, 8192, 2048, "fp32", None), (8, 8192, 2048, "bf16", None),
+              (3, 1000, 300, "fp32", 1_000_000),
+              (3, 1000, 300, "bf16", 600_000),
+              (2, 7, 5, "bf16", 1), (1, 1, 1, "fp32", None)]
+
+
+def _plan(monkeypatch, m, N, L, precision, budget):
+    if budget is not None:
+        monkeypatch.setattr(tkernel, "FUSED_WORKSPACE_BYTES", budget)
+    return tkernel.fused_chunks(m, N, L, precision)
+
+
+@pytest.mark.parametrize("m,N,L,precision,budget", PLAN_CASES)
+def test_fused_chunks_cover_the_samples_in_order(monkeypatch, m, N, L,
+                                                 precision, budget):
+    chunks = _plan(monkeypatch, m, N, L, precision, budget)
+    assert chunks[0][0] == 0 and all(rows >= 1 for _, rows in chunks)
+    for (n0, rows), (n1, _) in zip(chunks, chunks[1:]):
+        assert n1 == n0 + rows
+    assert chunks[-1][0] + chunks[-1][1] == N
+    # every chunk but the last has the first chunk's rows
+    assert {rows for _, rows in chunks[:-1]} <= {chunks[0][1]}
+
+
+@pytest.mark.parametrize("m,N,L,precision,budget", PLAN_CASES)
+def test_fused_chunks_fit_the_budget(monkeypatch, m, N, L, precision,
+                                     budget):
+    chunks = _plan(monkeypatch, m, N, L, precision, budget)
+    width = tkernel.fused_workspace_width(L, precision)
+    row_bytes = m * width * (4 if precision == "fp32" else 2)
+    assert width >= L and (precision == "fp32" or width % 8 == 0)
+    for _, rows in chunks:
+        # one row is the floor, whatever the budget
+        assert rows * row_bytes <= tkernel.FUSED_WORKSPACE_BYTES or rows == 1
+    if len(chunks) > 1:     # the most rows that fit
+        assert (chunks[0][1] + 1) * row_bytes > tkernel.FUSED_WORKSPACE_BYTES
+
+
+def test_fused_chunks_of_the_main_and_full_shapes():
+    """At the default 256 MiB: the main path's batch (m 8, N 2048, L 2048,
+    128 MiB in fp32) is one chunk; the full shape (N 8192) is two chunks
+    in fp32 and one in bf16."""
+    assert tkernel.FUSED_WORKSPACE_BYTES == 256 * 2**20
+    assert tkernel.fused_chunks(8, 2048, 2048, "fp32") == [(0, 2048)]
+    assert tkernel.fused_chunks(8, 8192, 2048, "fp32") == [(0, 4096),
+                                                           (4096, 4096)]
+    assert tkernel.fused_chunks(8, 8192, 2048, "bf16") == [(0, 8192)]
+
+
+@pytest.mark.parametrize("precision", ["fp32", "bf16"])
+def test_fused_chunks_of_one_sample(monkeypatch, precision):
+    assert tkernel.fused_chunks(4, 1, 2048, precision) == [(0, 1)]
+    monkeypatch.setattr(tkernel, "FUSED_WORKSPACE_BYTES", 1)
+    assert tkernel.fused_chunks(4, 1, 2048, precision) == [(0, 1)]
+    assert tkernel.fused_chunks(4, 3, 2048, precision) == [(0, 1), (1, 1),
+                                                           (2, 1)]
+
+
 # ------------------------------------------------------------ int8 stream
 
 
@@ -343,3 +403,22 @@ def test_quantized_from_numpy():
     with pytest.raises(ValueError, match="int8"):
         convert.quantized_from_numpy(q.astype(np.int32), np.ones((1, 1, 1)),
                                      device="cpu")
+
+
+# ------------------------------------------------ the kernels' build key
+
+def test_library_name_follows_the_shared_headers(monkeypatch, tmp_path):
+    """A kernel library's name hashes its source and every shared header
+    (``kernels/include/*.cuh``), so editing a header rebuilds the kernels
+    that include it; the shipped header is on that list."""
+    from repro_torch.kernels import _build
+
+    assert (_build.INCLUDE_DIR / "ptx.cuh").is_file()
+    assert '#include "ptx.cuh"' in tkernel.SOURCE.read_text()
+    monkeypatch.setattr(_build, "INCLUDE_DIR", tmp_path)
+    (tmp_path / "ptx.cuh").write_text("// one\n")
+    first = _build.library_path(tkernel.SOURCE)
+    assert first == _build.library_path(tkernel.SOURCE)
+    assert first.name.startswith("gram-") and first.suffix == ".so"
+    (tmp_path / "ptx.cuh").write_text("// two\n")
+    assert _build.library_path(tkernel.SOURCE) != first

@@ -2,13 +2,14 @@
 # Mutation check of the swa gates in chip_smoke.py, on one CUDA card.
 #
 # Copies src/ into WORKDIR (default: a fresh temporary directory), breaks
-# the copy's swa kernel so that it skips the boundary kv tile of every full
-# window (kt_begin + 1 when q0 >= window), builds it, and prints one JSON
-# line "MUTANT {...}": the broken kernel against its plain version at
-# phase 6's call (bf16) and at recurrentgemma-2b's S = 8192 shape (fp32),
-# as max |o - plain| / max |plain| and ||o - plain|| / ||plain||, and
-# phase 6's check (c) (bf16 pooled features, kernels against plain
-# versions) with the broken kernel.  The repository itself is not touched.
+# the copy's bf16 swa kernel so that it skips the boundary kv tile of every
+# full window (kv_begin + 1 when q0 >= window), builds it, and prints one
+# JSON line "MUTANT {...}": the broken kernel against its plain version at
+# phase 6's call and at recurrentgemma-2b's S = 8192 shape (both bf16), as
+# max |o - plain| / max |plain| and ||o - plain|| / ||plain|| beside
+# SWA_NORM_TOL, and phase 6's check (c) (bf16 pooled features, kernels
+# against plain versions) with the broken kernel.  The repository itself is
+# not touched.
 #
 # Run from the repository root:  bash tools/swa_mutant_check.sh [WORKDIR]
 set -euo pipefail
@@ -18,8 +19,8 @@ rm -rf "$MUT/src"
 cp -r src "$MUT/src"
 rm -rf "$MUT/src/repro_torch/kernels/_build"
 CU="$MUT/src/repro_torch/kernels/swa/csrc/swa.cu"
-sed -i 's|const int kt_begin = max(0, q0 - window + 1) / BK;|const int kt_begin = max(0, q0 - window + 1) / BK + (q0 >= window ? 1 : 0);|' "$CU"
-grep -q "q0 >= window ? 1 : 0" "$CU"
+sed -i 's|const int kv_begin = max(0, q0 - window + 1) / BKV;|const int kv_begin = max(0, q0 - window + 1) / BKV + (q0 >= window ? 1 : 0);|' "$CU"
+grep -q "BKV + (q0 >= window ? 1 : 0)" "$CU"
 MUT_SRC="$MUT/src" python3 - <<'PY'
 import json
 import os
@@ -39,18 +40,19 @@ from repro_torch.models import transformer
 assert kernel.__file__.startswith(os.environ["MUT_SRC"]), kernel.__file__
 torch.backends.cuda.matmul.allow_tf32 = False
 gen = torch.Generator(device="cuda").manual_seed(0)
-out = {}
-for label, (B, H, KV, S, D, W), dtype in (
-        ("main_path_bf16", (8, 10, 1, 4096, 256, 2048), torch.bfloat16),
-        ("recurrentgemma_s8192_fp32", (1, 10, 1, 8192, 256, 2048),
-         torch.float32)):
-    q = torch.randn(B, H, S, D, device="cuda", generator=gen).to(dtype)
-    k = torch.randn(B, KV, S, D, device="cuda", generator=gen).to(dtype)
-    v = torch.randn(B, KV, S, D, device="cuda", generator=gen).to(dtype)
+tol = chip_smoke.SWA_NORM_TOL["bf16"]
+out = {"norm_tol": tol}
+for label, (B, H, KV, S, D, W) in (
+        ("main_path_bf16", (8, 10, 1, 4096, 256, 2048)),
+        ("recurrentgemma_s8192_bf16", (1, 10, 1, 8192, 256, 2048))):
+    q = torch.randn(B, H, S, D, device="cuda", generator=gen).bfloat16()
+    k = torch.randn(B, KV, S, D, device="cuda", generator=gen).bfloat16()
+    v = torch.randn(B, KV, S, D, device="cuda", generator=gen).bfloat16()
     o, p = kernel.swa(q, k, v, W), swa_ref(q, k, v, W)
+    norm = chip_smoke.norm_rel(torch, o, p)
     out[label] = {"rel_max": chip_smoke.rel_err(torch, o.float(),
                                                 p.float())[1],
-                  "norm_rel": chip_smoke.norm_rel(torch, o, p)}
+                  "norm_rel": norm, "norm_rel_over_tol": norm / tol}
     del q, k, v, o, p
     torch.cuda.empty_cache()
 # phase 6's check (c): agent 0's first batch, same seeds as chip_smoke.py
