@@ -8,14 +8,19 @@ Phases (any failure raises and the script exits non-zero):
   2. build: nvcc compiles the Gram, sliding-window attention, RG-LRU and
      mLSTM kernels from ``src/repro_torch``, one nvcc per source, all at
      once; ptxas's registers, spill bytes and static shared memory of
-     every kernel, on the build line;
+     every kernel, and the bf16 Gram body's dynamic shared memory, on the
+     build line;
   3. kernels: each CUDA kernel against its plain PyTorch version at the
      main path's shape, the full backbone shape (m=8, N=8192, L=2048, D=8,
      d_in=256) and a ragged shape (m=3, N=1000, L=300, D=3, d_in=70), in
-     fp32 and bf16 (``gram_tri_q``: int8 from one Hq/scales per case,
-     block_l 128 and 32, its quantization pass timed apart;
+     fp32 and bf16 (bf16 ``gram_tri`` and ``gram_dense`` also at the main
+     path's shape and at L=296, where they run the tensor-core body; each
+     Gram case records the body it ran; ``gram_tri_q``: int8 from one
+     Hq/scales per case, block_l 128 and 32, its quantization pass timed
+     apart;
      ``gram_dense``: one agent); G must be exactly symmetric (all but the
-     dense baseline); ``gram_fused`` also reports its workspace and
+     dense baseline); bf16 ``gram_tri`` and ``gram_dense`` must also equal
+     their plain versions exactly on small-integer inputs; ``gram_fused`` also reports its workspace and
      chunks (two at the full shape in fp32); ``swa`` at phase 6's shape,
      recurrentgemma-2b's and
      h2o-danube's at S = 8192, and a ragged one, also held in norm
@@ -33,7 +38,8 @@ Phases (any failure raises and the script exits non-zero):
      stream (``gram_tri_q``) and a DMTL fit from it, the colored
      Gauss-Seidel fit (at r = 1 its trajectory held against the same
      sweeps in fp64 on the CPU, and its staleness-1 sweep against the
-     dense fit), and the dense-baseline op (``gram_dense``); every kernel
+     dense fit), the dense-baseline op (``gram_dense``), and the bf16
+     materialized stream (``gram_tri`` on the tensor-core body); every kernel
      of each path must have launched; then the dense, int8 and colored
      fits to 32 iterations at r = 8 and r = 1, their objective gaps read
      at 8, 16 and 32;
@@ -50,7 +56,12 @@ Phases (any failure raises and the script exits non-zero):
   8. the backbone route at full xlstm-1.3b width (48 layers: 42 mLSTM, 6
      sLSTM; bf16 compute, fp32 weights from a seeded generator), as phase 6:
      every mLSTM block launched ``mlstm``, the same checks, and one mLSTM
-     and one sLSTM block timed apart at the route's (8, 4096, 2048).
+     and one sLSTM block timed apart at the route's (8, 4096, 2048);
+  9. the bf16 ``gram_tri`` and ``gram_dense`` cases of phase 3 at the main
+     path's and the full shape split by ``torch.profiler`` into device
+     time per kernel, theirs and the library call's: last, because a
+     profiler session slows the host side of every later launch in the
+     process.
 
 The last three lines of standard output are the ``{"kernels": ...}`` JSON
 line, the card's name and power limit from nvidia-smi, and
@@ -149,9 +160,43 @@ def time_ms(torch, fn) -> float:
     return statistics.median(times)
 
 
+def device_split(torch, fn, calls: int = 5) -> dict:
+    """Device time per call of each kernel that ``fn`` launches, in ms, from
+    ``torch.profiler`` over ``calls`` calls after a warm-up: what a single
+    CUDA-event time adds on the host is not in it."""
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    return {e.key[:72]: e.device_time_total / calls / 1e3
+            for e in prof.key_averages() if e.device_time_total > 0}
+
+
 def rel_err(torch, got, want) -> tuple[float, float]:
     diff = float((got - want).abs().max())
     return diff, diff / max(float(want.abs().max()), 1e-30)
+
+
+def integer_gram_err(torch, kernel, ref, kind, m, N, L, D, gen) -> float:
+    """max |kernel - plain| over G and R of bf16 ``gram_tri`` (``gram_dense``
+    at one agent) on inputs of small integers, -2 .. 2: every product and
+    every partial sum (at most 4 N) is an integer that fp32 holds exactly,
+    so any order of the sums gives the same G and R, and a sound body reads
+    exactly 0.  A 64-sample stage whose products are lost reads at least 1
+    on G's diagonal; against ``TOL["bf16"]``, which holds Gaussian inputs
+    relative to max |plain|, such a loss reads ~1e-2 at N = 8192 and
+    passes (PERF.md §6)."""
+    assert 4 * N < 2**24, "partial sums would leave fp32's exact integers"
+    shape = (N, L) if kind == "gram_dense" else (m, N, L)
+    H = torch.randint(-2, 3, shape, device="cuda", generator=gen).bfloat16()
+    T = torch.randint(-2, 3, (*shape[:-1], D), device="cuda",
+                      generator=gen).bfloat16()
+    G, R = getattr(kernel, kind)(H, T)
+    Gp, Rp = ref.gram_ref(H, T)
+    return max(float((G - Gp).abs().max()), float((R - Rp).abs().max()))
 
 
 def norm_rel(torch, got, want) -> float:
@@ -483,9 +528,11 @@ def kernel_case(torch, kernel, ref, kind, shape, precision, activation,
             return torch.bmm(Hl.mT, Hl), torch.bmm(Hl.mT, T)
 
     kernel.LAST_FUSED.update(chunks=0, hidden_rows=0, workspace_bytes=0)
+    kernel.LAST_GRAM.update(kernel=None, body=None)
     G, R = run()
     torch.cuda.synchronize()
     launched = dict(kernel.LAST_FUSED)   # this call's, as the wrapper counted
+    body = kernel.LAST_GRAM["body"]      # gram_tri, gram_dense: the body it ran
     Gp, Rp = plain()
     check(bool(torch.isfinite(G).all() and torch.isfinite(R).all()),
           f"{kind} {label}: non-finite output")
@@ -519,12 +566,51 @@ def kernel_case(torch, kernel, ref, kind, shape, precision, activation,
                     workspace_bytes=launched["workspace_bytes"],
                     recomputed_hidden_flops=2 * m * d_in * L
                     * (launched["hidden_rows"] - N))
+    if kind in ("gram_tri", "gram_dense"):
+        case["body"] = body
+    if kind in ("gram_tri", "gram_dense") and precision == "bf16":
+        case["integer_abs_err"] = integer_gram_err(
+            torch, kernel, ref, kind, m, N, L, D, gen)
+        check(case["integer_abs_err"] == 0.0,
+              f"{kind} {label} bf16: off its plain version by "
+              f"{case['integer_abs_err']:.3g} on integer inputs, where both "
+              f"are exact")
     if kind == "gram_dense":
         # what the baseline's algorithm does: every tile pair, the full square
         case["algorithmic_ops"] = 2 * N * L * L + 2 * N * L * D
     del G, R, Gp, Rp, run, plain, library
     torch.cuda.empty_cache()
     return case
+
+
+def gram_device_splits(torch, kernel, cases, gen) -> None:
+    """Phase 9: each bf16 ``gram_tri``/``gram_dense`` case of phase 3 that
+    ran the tensor-core body at the main path's or the full shape gets
+    ``device_ms`` and ``library_device_ms``, the device time per call of
+    each kernel that it and its library call launch (``device_split``),
+    apart from the host time a single timed call carries.  It runs after
+    every timed phase: after a profiler session the host side of each
+    launch in the process is slower (phase 8's encode by 11-23% on an
+    H100, PERF.md §6)."""
+    for kind in ("gram_tri", "gram_dense"):
+        mm = torch.mm if kind == "gram_dense" else torch.bmm
+        for case in cases[kind]:
+            if (case.get("body") != "wgmma"
+                    or case["case"] not in ("main_path", "full")):
+                continue
+            m, N, L, D = (case["shape"][k] for k in "mNLD")
+            shape = (N, L) if kind == "gram_dense" else (m, N, L)
+            H = (torch.randn(*shape, device="cuda", generator=gen)
+                 / math.sqrt(L)).bfloat16()
+            T = torch.randn(*shape[:-1], D, device="cuda",
+                            generator=gen).bfloat16()
+            case.update(
+                device_ms=device_split(
+                    torch, lambda: getattr(kernel, kind)(H, T)),
+                library_device_ms=device_split(
+                    torch, lambda: (mm(H.mT, H), mm(H.mT, T))))
+            del H, T
+            torch.cuda.empty_cache()
 
 
 KERNEL_KINDS = ("swa", "rglru", "mlstm")   # each block of the kind launches it
@@ -764,6 +850,8 @@ def main() -> int:
             w.SOURCE).with_suffix(".log").read_text())
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "nvcc_seconds": dict(_build.build_seconds), "ptxas": ptxas,
+          "gram_wgmma_dynamic_smem_bytes":
+              kernel.library().gram_wgmma_smem_bytes(),
           "swa_dynamic_smem_bytes": {
               str(dtype).removeprefix("torch."): {
                   D: swa_kernel.smem_bytes(D, dtype) for D in (64, 120, 256)}
@@ -792,6 +880,14 @@ def main() -> int:
                 cases["gram_fused"].append(kernel_case(
                     torch, kernel, ref, "gram_fused", shape, precision,
                     activation, gen, label))
+    # bf16 gram_tri on the tensor-core body: the main path's shape, and a
+    # ragged N with L % 8 == 0 but L % 128 != 0 (L = 300 above takes the
+    # FMA body)
+    ragged_tc_shape = (3, 1000, 296, 3, 70)
+    for label, shape in (("main_path", main_shape),
+                         ("ragged_l296", ragged_tc_shape)):
+        cases["gram_tri"].append(kernel_case(
+            torch, kernel, ref, "gram_tri", shape, "bf16", None, gen, label))
     for label, shape, block_l in (("main_path", main_shape, 128),
                                   ("main_path_bl32", main_shape, 32),
                                   ("full", full_shape, 128),
@@ -802,9 +898,10 @@ def main() -> int:
     # one agent: the dense path's own shape first, then full and ragged
     dense_path_shape = (1, 8192, 2048, 3, 256)
     for label, shape, precisions in (
-            ("main_path", dense_path_shape, ("fp32",)),
+            ("main_path", dense_path_shape, ("fp32", "bf16")),
             ("full", full_shape, ("fp32", "bf16")),
-            ("ragged", ragged_shape, ("fp32", "bf16"))):
+            ("ragged", ragged_shape, ("fp32", "bf16")),
+            ("ragged_l296", (1,) + ragged_tc_shape[1:], ("bf16",))):
         for precision in precisions:
             cases["gram_dense"].append(kernel_case(
                 torch, kernel, ref, "gram_dense", shape, precision, None,
@@ -842,6 +939,14 @@ def main() -> int:
             ("input_gate_-100", (2, 2, 1000, 64, 256), "fp32", "neg100",
              False),
             ("oracle", (1, 4, 1024, 1024, 256), "fp32", "std", True))]
+    # the bf16 Gram cases ran the body that the shape names: the tensor
+    # cores where TMA can read H (L % 8 == 0), the FMA body at L = 300
+    for name in ("gram_tri", "gram_dense"):
+        for c in cases[name]:
+            want = ("fma" if c["dtype"] == "fp32" or c["shape"]["L"] % 8
+                    else "wgmma")
+            check(c["body"] == want, f"{name} {c['case']} {c['dtype']} ran "
+                  f"the {c['body']} body, not {want}")
     kernels_seconds = time.perf_counter() - t0
     emit({"phase": "kernels", "seconds": kernels_seconds,
           "cases": {k: len(v) for k, v in cases.items()}})
@@ -1024,9 +1129,33 @@ def main() -> int:
     for a, b, leaf in ((G0, stats_mat.G[0], "G"), (R0, stats_mat.R[0], "R")):
         _, rel = rel_err(torch, a, b)
         check(rel <= TOL["fp32"], f"dense-op {leaf} vs stream stats: {rel:.3g}")
+
+    # 4e. the bf16 materialized stream (stats_precision="bf16"): gram_tri on
+    # the tensor-core body, once per batch, against the same stream's plain
+    # version
+    kernel.reset_launches()
+    kernel.LAST_GRAM.update(kernel=None, body=None)
+    stats_bf16 = timed("stats_bf16_s", lambda: pipeline.stream_sufficient_stats(
+        ((fmap(x), y) for x, y in batches), precision="bf16"))
+    launches["gram_tri_bf16_stream"] = kernel.LAUNCHES["gram_tri"]
+    check(launches["gram_tri_bf16_stream"] == len(batches),
+          f"bf16 stream launched gram_tri {launches['gram_tri_bf16_stream']} "
+          f"times, not once per batch ({len(batches)})")
+    check(kernel.LAST_GRAM["body"] == "wgmma", f"bf16 stream ran the "
+          f"{kernel.LAST_GRAM['body']} body, not wgmma")
+    stats_bf16_plain = pipeline.stream_sufficient_stats(
+        ((fmap(x), y) for x, y in batches), precision="bf16", use_kernel=False)
+    bf16_stream_err = {}
+    for leaf in ("G", "R"):
+        _, bf16_stream_err[leaf] = rel_err(torch, getattr(stats_bf16, leaf),
+                                           getattr(stats_bf16_plain, leaf))
+        check(bf16_stream_err[leaf] <= TOL["bf16"], f"bf16 stream {leaf} off "
+              f"its plain version by {bf16_stream_err[leaf]:.3g}")
+    del stats_bf16, stats_bf16_plain
     emit({"phase": "main_path_slice2", "times_s": times,
           "launches": launches, "test_error_pct": err,
           "int8_stats_G_rel_err": g_rel,
+          "bf16_stream_vs_plain_rel_err": bf16_stream_err,
           "int8_fit_objective_on_fp32_stats": obj_q,
           "fp32_fit_objective": obj_fp32,
           "int8_objective_rel_gap": (obj_q - obj_fp32) / abs(obj_fp32),
@@ -1034,7 +1163,7 @@ def main() -> int:
           "colored_consensus": gs_diag["consensus"].tolist(),
           "colored_max_rel_diff": colored_traj})
 
-    # 4e. the int8 and colored objective gaps over a longer run: the dense
+    # 4f. the int8 and colored objective gaps over a longer run: the dense
     # fp32, int8 and colored fits to 32 iterations, read at 8, 16 and 32,
     # at r = 8 and at r = 1
     horizon = {}
@@ -1137,6 +1266,9 @@ def main() -> int:
     ported["swa"] = "src/repro_torch/kernels/swa/csrc/swa.cu"
     ported["rglru"] = "src/repro_torch/kernels/rglru/csrc/rglru.cu"
     ported["mlstm"] = "src/repro_torch/kernels/mlstm/csrc/mlstm.cu"
+    # 9. the profiler's device split of the bf16 Gram cases, after every
+    # timed phase
+    gram_device_splits(torch, kernel, cases, gen)
     launches.update(swa=route6["launches"]["swa"],
                     rglru=route6["launches"]["rglru"],
                     mlstm=route8["launches"]["mlstm"])

@@ -9,13 +9,15 @@
 // What bounds them on an H100: operations.  G costs m*N*L^2 useful FMAs-worth of
 // flops on the lower triangle and every byte of H is read once per tile pair
 // that touches it, so the arithmetic intensity is ~BL/2 flops per byte even in
-// this simple form; fp32 runs on the CUDA cores (no TF32 anywhere), so the
-// floor is the 67 TFLOP/s fp32 rate.  gram_tri and gram_dense widen bf16
-// inputs to fp32 and run them on the same FMA path: their tensor-core floor is
-// not reached (later work).  int8 (gram_tri_q) runs on the tensor cores
-// through mma.sync m16n8k32 with int32 accumulators; its floor is the 1979
-// TOP/s int8 rate, far below what byte-wise staging without a pipeline
-// reaches (a TMA + wgmma version is later work).
+// this simple form.  fp32 runs on the CUDA cores (no TF32 anywhere), so its
+// floor is the 67 TFLOP/s fp32 rate.  bf16 gram_tri and gram_dense are bound
+// by the 989 TFLOP/s bf16 tensor-core rate, which only wgmma reaches: for
+// L % 8 == 0 and H on 16 bytes they run gram_wgmma_kernel (TMA + wgmma, see
+// below); other bf16 shapes widen to fp32 and take the FMA body.  int8
+// (gram_tri_q) runs on the tensor cores through mma.sync m16n8k32 with int32
+// accumulators; its floor is the 1979 TOP/s int8 rate, far below what
+// byte-wise staging without a pipeline reaches (a TMA + wgmma version is
+// later work).
 //
 // Design:
 //  * One thread block per (agent, lower-triangular tile pair (i, j <= i)); the
@@ -45,6 +47,43 @@
 //  * gram_dense is the dense-tile baseline for one agent: one block per
 //    (i, j) tile pair, j > i included, no mirror, R on j == 0; the same
 //    staging and FMA path as gram_tri, twice the tiles.
+//
+// gram_tri and gram_dense in bf16 on wgmma (gram_wgmma_kernel):
+//  * The output tiles and the stores are those above: 128 x 128 G tiles (the
+//    triangle's with the exact-symmetry mirror, or every (i, j) of one agent
+//    with no mirror), R on the blocks of column 0.  A block takes two tiles
+//    side by side, (i, j0) and (i, j0 + 1), so that tile i is copied once
+//    for both: 1.5 tile copies per tile of products, not 2.  The triangle's
+//    rows hold blocks of two tiles where both are on or below the diagonal
+//    and a lone diagonal tile where not (pair_decode); the dense baseline's
+//    16 x 8 blocks at L 2048 fill the card's 132 SMs once.  One tile a
+//    block, with a ring of 4 or 6 stages or 3 at two blocks an SM, took
+//    7-22% longer on an H100 at L 2048 (device time: gram_tri (8, 8192,
+//    2048) 0.527-0.573 ms against 0.492, gram_dense (8192, 2048)
+//    0.118-0.126 against 0.104).
+//  * Both operands of G = H^T H come from row-major H tiles [sample][column]:
+//    A = H_i^T and B = H_j are MN-major, which wgmma takes for 16-bit types
+//    through its transpose flags (not for fp32, hence bf16 only).  TMA
+//    copies 64 samples x 64 columns (128 bytes, 128-byte swizzle) per box,
+//    two boxes per tile, from a 3-D map of H (so a ragged N reads zeros, not
+//    the next agent); a tile j == i is not loaded again: its B is tile i.
+//  * One producer thread (a warp of its own) keeps a ring of four stages
+//    (50 KB each) in flight, one mbarrier each way per stage; two consumer
+//    warpgroups each run m64n128k16 wgmma for 64 rows of each tile (128 fp32
+//    accumulators a thread) and free a stage once the next stage's products
+//    are issued.
+//    No wgmma sits behind a branch (each block shape has its own loop), or
+//    ptxas serializes them.
+//  * R = H_i^T T reuses the A operand.  T's rows (D bf16 values) are not
+//    16-byte strides where D % 8 != 0, so pad_t_kernel first writes T with
+//    zero columns up to a multiple of 8 into a buffer (2 m N 8 ceil(D / 8)
+//    bytes), and TMA copies it in 64-sample x 8-column boxes, each the B of
+//    an m64n8k16 wgmma; 16 columns a pass, as above.  Staged through the
+//    producer's registers instead, T's loads held each stage of the blocks
+//    of column 0 back (the slowest blocks: gram_dense bf16 full 0.20 against
+//    0.11 ms without them on an H100).
+//  * Each finished tile is staged through the drained ring (row stride 129
+//    floats), so the tile and its transpose both leave in coalesced rows.
 //
 // gram_fused (H = act(X W + b) never given by the caller):
 //  * The TPU kernel keeps each hidden tile in VMEM and never writes H to HBM.
@@ -85,6 +124,7 @@
 // Interface: plain C, one entry per kernel and dtype, launched on the caller's
 // stream; each returns cudaGetLastError() of its launch.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -849,6 +889,351 @@ inline dim3 tri_grid(int m, int L) {
   return dim3(nl * (nl + 1) / 2, m);
 }
 
+// ---------------------------------------------------------------------------
+// gram_tri / gram_dense in bf16 on Hopper's tensor cores: TMA + wgmma
+// ---------------------------------------------------------------------------
+
+constexpr int WK = 64;         // samples per stage: one TMA box deep
+constexpr int WBOX = 64;       // columns per TMA box: 128 bytes, the swizzle's row
+constexpr int WSTAGES = 4;     // ring depth
+constexpr int WTILES = 2;      // 128 x 128 G tiles per block, side by side
+constexpr int WCONS = 2;       // consumer warpgroups, 64 tile rows each
+constexpr int WNT = 128 * WCONS + 32;  // and one producer warp
+constexpr int WRG = RD / 8;    // R: 8-column groups of T per pass
+constexpr int WSLICES = WK / 16;       // k = 16 wgmma steps per stage
+constexpr int WST = BL + 1;    // fp32 row stride of a staged output tile
+constexpr uint32_t kBoxBytes = WK * WBOX * 2;   // one TMA box, 8 KB
+constexpr uint32_t kSliceBytes = 16 * WBOX * 2;  // 16 samples of a box
+constexpr uint32_t kTBoxBytes = WK * 8 * 2;      // 64 samples of 8 columns of T
+// MN-major 128-byte-swizzled operands (CUTLASS's canonical GMMA layout
+// ((8, m), (8, k)) : ((1, LBO), (8, SBO)) in 16-byte units): LBO steps to
+// the next 64 columns (a tile's second box), SBO to the next 8 samples.
+constexpr uint32_t kSwLbo = kBoxBytes;
+constexpr uint32_t kSwSbo = 8 * WBOX * 2;
+// T's 8-column groups (one TMA box each, no swizzle): 16-byte rows, 8
+// samples to a 128-byte core matrix; with one 8-column group the next core
+// matrix along k is the only stride, so it is both offsets
+constexpr uint32_t kTCore = 8 * 16;
+
+struct alignas(1024) WgStage {
+  __nv_bfloat16 hi[2][WK][WBOX];          // tile i, two boxes (TMA writes them swizzled)
+  __nv_bfloat16 hj[WTILES][2][WK][WBOX];  // tiles j0, j0 + 1 (a tile j == i is read from hi)
+  __nv_bfloat16 t[WRG][WK][8];            // the pass's 16 columns of T, two boxes
+};
+constexpr size_t kWgSmem = WSTAGES * sizeof(WgStage) + 1024;  // + alignment
+static_assert(sizeof(WgStage) % 1024 == 0, "every stage on a swizzle atom");
+static_assert(BL * WST * sizeof(float) <= WSTAGES * sizeof(WgStage),
+              "an output tile is staged in the ring");
+
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr) {
+  return wgmma_desc(addr, kSwLbo, kSwSbo, 1);
+}
+
+// The triangle in blocks of up to two tiles: row i of tiles holds blocks
+// p = 0 .. i / 2, block p the tiles (i, 2p) and (i, 2p + 1) where both are
+// on or below the diagonal, else (i, i) alone.  Rows 2k and 2k + 1 hold
+// 2k + 2 blocks, so k(k + 1) blocks come before row 2k.
+__device__ __forceinline__ void pair_decode(int t, int& i, int& j0, int& tiles) {
+  int k, unused;
+  tri_decode(t >> 1, k, unused);  // the largest k with k(k + 1) <= t
+  const int o = t - k * (k + 1);
+  i = 2 * k + (o > k ? 1 : 0);
+  j0 = 2 * (o > k ? o - (k + 1) : o);
+  tiles = j0 + 1 <= i ? 2 : 1;
+}
+
+struct WgCursor {
+  int stage, phase;  // the ring slot a consumer reads next, and its parity
+};
+
+// One pass of a consumer warpgroup over the sample axis: with kG, each of
+// the block's kTiles tiles adds the products of the warpgroup's 64 rows into
+// acc[t] (tile t's B from tile i's copy where bit t of from_hi is set); each
+// of kRG 8-column groups of T adds H_i^T T into racc.  A
+// stage's slot is freed once the next stage's products are issued (at most
+// one group of them in flight).
+template <int kTiles, bool kG, int kRG>
+__device__ __forceinline__ void wg_consume(const WgStage* ring, uint64_t* full, uint64_t* empty,
+                                           int steps, int wg, int lane, int from_hi,
+                                           WgCursor& cur, float (&acc)[WTILES][64],
+                                           float (&racc)[WRG][4]) {
+  int held = -1;  // the slot whose products may still be in flight
+  for (int s = 0; s < steps; ++s) {
+    mbar_wait(&full[cur.stage], cur.phase);
+    const WgStage& sg = ring[cur.stage];
+    const uint32_t a0 = smem_u32(&sg.hi[wg][0][0]);
+    const uint32_t t0 = smem_u32(&sg.t[0][0][0]);
+    uint32_t b0[WTILES];
+#pragma unroll
+    for (int t = 0; t < WTILES; ++t)
+      b0[t] = smem_u32((from_hi >> t) & 1 ? &sg.hi[0][0][0] : &sg.hj[t][0][0][0]);
+    wgmma_fence();
+#pragma unroll
+    for (int k = 0; k < WSLICES; ++k) {
+      const uint64_t da = sw128_desc(a0 + k * kSliceBytes);
+      if constexpr (kG) {
+#pragma unroll
+        for (int t = 0; t < kTiles; ++t)
+          wgmma_m64n128k16_mn(acc[t], da, sw128_desc(b0[t] + k * kSliceBytes));
+      }
+#pragma unroll
+      for (int g = 0; g < kRG; ++g)
+        wgmma_m64n8k16_mn(racc[g], da,
+                          wgmma_desc(t0 + g * WK * 16 + k * 2 * kTCore, kTCore, kTCore, 0));
+    }
+    wgmma_commit();
+    wgmma_wait<1>();
+    mbar_arrive_if(&empty[held < 0 ? 0 : held], held >= 0 && lane == 0);
+    held = cur.stage;
+    if (++cur.stage == WSTAGES) cur.stage = 0, cur.phase ^= 1;
+  }
+  wgmma_wait<0>();
+  mbar_arrive_if(&empty[held < 0 ? 0 : held], held >= 0 && lane == 0);
+}
+
+// G = H^T H (and R = H^T T on the blocks of column 0) of up to two 128 x 128
+// tiles (i, j0) and (i, j0 + 1) per block, bf16 on the tensor cores with fp32
+// accumulators.  kDense: tiles (blockIdx.y, 2 blockIdx.x + t) of one agent,
+// stored as computed; otherwise block blockIdx.x of pair_decode's triangle
+// of agent blockIdx.y, each tile stored with its mirror.  hmap is H (m, N, L)
+// as a 3-D tensor map of 64 x 64 boxes, 128-byte swizzle; tmap is T padded
+// with zero columns to a multiple of 8, (m, N, 8 ceil(D / 8)), in 64 x 8
+// boxes without swizzle.
+template <bool kDense>
+__global__ void __launch_bounds__(WNT, 1) gram_wgmma_kernel(
+    const __grid_constant__ CUtensorMap hmap, const __grid_constant__ CUtensorMap tmap,
+    float* __restrict__ G, float* __restrict__ R, int N, int L, int D) {
+  extern __shared__ uint8_t wg_smem[];
+  __shared__ __align__(8) uint64_t full[WSTAGES], empty[WSTAGES];
+  WgStage* ring = reinterpret_cast<WgStage*>(
+      wg_smem + ((1024 - smem_u32(wg_smem) % 1024) % 1024));
+
+  const int a = kDense ? 0 : blockIdx.y;
+  int i, j0, tiles;
+  if (kDense) {
+    i = blockIdx.y;
+    j0 = 2 * blockIdx.x;
+    tiles = j0 + 1 < (L + BL - 1) / BL ? 2 : 1;
+  } else {
+    pair_decode(blockIdx.x, i, j0, tiles);
+  }
+  // bit t: tile j0 + t is tile i, whose B operand is tile i's copy (nothing
+  // more loads)
+  const int from_hi = (j0 == i ? 1 : 0) | (j0 + 1 == i ? 2 : 0);
+  const bool owns_r = (j0 == 0);
+  const int steps = (N + WK - 1) / WK;
+  const int n_pass = owns_r ? (D + RD - 1) / RD : 1;
+  // the warp index through a shuffle: the compiler then knows it is
+  // uniform across the warp, and the role split below is not divergent
+  const int warp = __shfl_sync(0xffffffffu, threadIdx.x / 32, 0), lane = threadIdx.x % 32;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < WSTAGES; ++s) {
+      mbar_init(&full[s], 1);             // the producer, with its TMA bytes
+      mbar_init(&empty[s], WCONS * 4);    // one lane of each consumer warp
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (warp == WCONS * 4) {
+    // producer: one thread keeps the ring's TMA copies in flight
+    if (lane != 0) return;
+    int stage = 0, phase = 0;
+    for (int pass = 0; pass < n_pass; ++pass) {
+      const int d0 = pass * RD;
+      // tile j0 + t loads on the first pass unless it is tile i; T's
+      // 8-column groups of the pass on the blocks of column 0
+      const int load_j = pass == 0 ? ~from_hi & ((1 << tiles) - 1) : 0;
+      const int t_groups = owns_r ? (d0 + 8 < D ? 2 : 1) : 0;
+      const uint32_t bytes = 2 * (1 + __popc(load_j)) * kBoxBytes + t_groups * kTBoxBytes;
+      for (int s = 0; s < steps; ++s) {
+        const int n0 = s * WK;
+        mbar_wait(&empty[stage], phase ^ 1);
+        WgStage& sg = ring[stage];
+        mbar_arrive_expect_tx(&full[stage], bytes);
+        for (int b = 0; b < 2; ++b) {
+          tma_load_3d(&sg.hi[b][0][0], &hmap, &full[stage], i * BL + b * WBOX, n0, a);
+          for (int t = 0; t < tiles; ++t)
+            if ((load_j >> t) & 1)
+              tma_load_3d(&sg.hj[t][b][0][0], &hmap, &full[stage], (j0 + t) * BL + b * WBOX,
+                          n0, a);
+        }
+        for (int g = 0; g < t_groups; ++g)
+          tma_load_3d(&sg.t[g][0][0], &tmap, &full[stage], d0 + 8 * g, n0, a);
+        if (++stage == WSTAGES) stage = 0, phase ^= 1;
+      }
+    }
+    return;
+  }
+
+  // consumers: warpgroup wg owns tile rows wg * 64 .. wg * 64 + 63
+  const int wg = warp / 4;
+  float acc[WTILES][64];
+#pragma unroll
+  for (int t = 0; t < WTILES; ++t)
+#pragma unroll
+    for (int v = 0; v < 64; ++v) acc[t][v] = 0.0f;
+  WgCursor cur{0, 0};
+  for (int pass = 0; pass < n_pass; ++pass) {
+    const int d0 = pass * RD;
+    // 8-column groups of T this pass multiplies: none off column 0
+    const int groups = owns_r ? (d0 + 8 < D ? 2 : 1) : 0;
+    float racc[WRG][4];
+#pragma unroll
+    for (int g = 0; g < WRG; ++g)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) racc[g][e] = 0.0f;
+    // each case its own loop, so that no wgmma sits behind a branch
+#define WG_CONSUME(T, G_, RG) \
+  wg_consume<T, G_, RG>(ring, full, empty, steps, wg, lane, from_hi, cur, acc, racc)
+    if (pass > 0 && groups == 1) WG_CONSUME(1, false, 1);
+    else if (pass > 0) WG_CONSUME(1, false, 2);
+    else if (tiles == 2 && groups == 0) WG_CONSUME(2, true, 0);
+    else if (tiles == 2 && groups == 1) WG_CONSUME(2, true, 1);
+    else if (tiles == 2) WG_CONSUME(2, true, 2);
+    else if (groups == 0) WG_CONSUME(1, true, 0);
+    else if (groups == 1) WG_CONSUME(1, true, 1);
+    else WG_CONSUME(1, true, 2);
+#undef WG_CONSUME
+    if (owns_r) {
+      float* Ra = R + static_cast<size_t>(a) * L * D;
+#pragma unroll
+      for (int g = 0; g < WRG; ++g)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int l = i * BL + wg * 64 + (warp % 4) * 16 + lane / 4 + (e >= 2 ? 8 : 0);
+          const int d = d0 + g * 8 + (lane % 4) * 2 + (e & 1);
+          if (l < L && d < D) Ra[static_cast<size_t>(l) * D + d] = racc[g][e];
+        }
+    }
+  }
+
+  // each tile through shared memory (the ring is drained), so that the tile
+  // and its mirror both leave in coalesced rows
+  float* st = reinterpret_cast<float*>(ring);
+  float* Ga = G + static_cast<size_t>(a) * L * L;
+  const int tid = threadIdx.x, rows = min(BL, L - i * BL);
+#pragma unroll
+  for (int t = 0; t < WTILES; ++t) {
+    if (t >= tiles) break;
+    const int j = j0 + t, cols = min(BL, L - j * BL);
+    named_bar_sync(1, WCONS * 128);  // the ring, or the last tile, is read
+#pragma unroll
+    for (int v = 0; v < 64; ++v) {
+      const int r = wg * 64 + (warp % 4) * 16 + lane / 4 + ((v >> 1) & 1) * 8;
+      const int c = (v >> 2) * 8 + (lane % 4) * 2 + (v & 1);
+      st[r * WST + c] = acc[t][v];
+    }
+    named_bar_sync(1, WCONS * 128);
+    for (int e = tid; e < BL * BL; e += WCONS * 128) {
+      const int r = e / BL, c = e % BL;
+      // a diagonal tile of the triangle writes its lower half and that
+      // half's mirror: exact symmetry
+      const bool upper = !kDense && j == i && r < c;
+      if (r < rows && c < cols)
+        Ga[static_cast<size_t>(i * BL + r) * L + j * BL + c] =
+            upper ? st[c * WST + r] : st[r * WST + c];
+    }
+    if (!kDense && j != i) {
+      for (int e = tid; e < BL * BL; e += WCONS * 128) {
+        const int c = e / BL, r = e % BL;  // row j * BL + c of G, along its columns
+        if (r < rows && c < cols)
+          Ga[static_cast<size_t>(j * BL + c) * L + i * BL + r] = st[r * WST + c];
+      }
+    }
+  }
+}
+
+using TensorMapEncode = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                     const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                     const cuuint32_t*, CUtensorMapInterleave,
+                                     CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                     CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled is a driver-API call: reached through the runtime's
+// entry-point query, so that the library links no libcuda
+TensorMapEncode tensor_map_encode() {
+  static const TensorMapEncode fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    const cudaError_t err =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<TensorMapEncode>(p)
+               : nullptr;
+  }();
+  return fn;
+}
+
+// Tp[r][c] = T[r][c] for c < D, 0 for D <= c < Dp: T's rows (m N of them)
+// as 16-byte strides that TMA can copy
+__global__ void pad_t_kernel(const __nv_bfloat16* __restrict__ T, __nv_bfloat16* __restrict__ Tp,
+                             size_t rows, int D, int Dp) {
+  const size_t e = static_cast<size_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (e >= rows * Dp) return;
+  const size_t r = e / Dp;
+  const int c = static_cast<int>(e % Dp);
+  Tp[e] = c < D ? T[r * D + c] : __float2bfloat16_rn(0.f);
+}
+
+// A 3-D tensor map of a contiguous bf16 (m, N, width) array in boxes of
+// `box_w` columns x WK rows, 128-byte swizzle or none; false if the driver
+// refuses it.
+bool encode_map(CUtensorMap* map, const void* base, int m, int N, int width, int box_w,
+                CUtensorMapSwizzle swizzle) {
+  const TensorMapEncode encode = tensor_map_encode();
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(width), static_cast<cuuint64_t>(N),
+                              static_cast<cuuint64_t>(m)};
+  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(width) * 2,
+                                 static_cast<cuuint64_t>(N) * width * 2};
+  const cuuint32_t box[3] = {static_cast<cuuint32_t>(box_w), WK, 1};
+  const cuuint32_t unit[3] = {1, 1, 1};
+  return encode != nullptr &&
+         encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base), dims, strides,
+                box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) ==
+             CUDA_SUCCESS;
+}
+
+// gram_tri (m agents) or gram_dense (m = 1) in bf16 on the wgmma body.  Tp
+// is where the kernel reads T (m, N, D) from, with zero columns up to
+// Dp = 8 ceil(D / 8): T itself where D == Dp, else a buffer of m N Dp values
+// that pad_t_kernel fills first.  It needs what TMA needs: L % 8 == 0
+// (16-byte row strides) and H and Tp on 16 bytes; otherwise it refuses with
+// cudaErrorInvalidValue before it launches anything.
+template <bool kDense>
+int gram_wgmma(const void* H, const void* T, void* Tp, void* G, void* R, int m, int N, int L,
+               int D, void* stream) {
+  cudaGetLastError();
+  const int Dp = (D + 7) / 8 * 8;
+  CUtensorMap hmap, tmap;
+  if (L % 8 != 0 || !aligned16(H, Tp) || (Tp == T && D != Dp) ||
+      !encode_map(&hmap, H, m, N, L, WBOX, CU_TENSOR_MAP_SWIZZLE_128B) ||
+      !encode_map(&tmap, Tp, m, N, Dp, 8, CU_TENSOR_MAP_SWIZZLE_NONE))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const auto st = static_cast<cudaStream_t>(stream);
+  if (Tp != T) {
+    const size_t n = static_cast<size_t>(m) * N * Dp;
+    pad_t_kernel<<<static_cast<unsigned>((n + 255) / 256), 256, 0, st>>>(
+        static_cast<const __nv_bfloat16*>(T), static_cast<__nv_bfloat16*>(Tp),
+        static_cast<size_t>(m) * N, D, Dp);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  const cudaError_t attr =
+      cudaFuncSetAttribute(gram_wgmma_kernel<kDense>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           static_cast<int>(kWgSmem));
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  // blocks of two tiles: every row of tiles of the square, or the
+  // triangle's rows (pair_decode), ceil(nl / 2) (floor(nl / 2) + 1) of them
+  const int nl = (L + BL - 1) / BL, half = (nl + 1) / 2;
+  const dim3 grid = kDense ? dim3(half, nl) : dim3(half * (nl / 2 + 1), m);
+  gram_wgmma_kernel<kDense><<<grid, WNT, kWgSmem, st>>>(
+      hmap, tmap, static_cast<float*>(G), static_cast<float*>(R), N, L, D);
+  return static_cast<int>(cudaGetLastError());
+}
+
 // One chunk of gram_fused: sample rows [n0, n0 + rows) of all m agents.  The
 // hidden layer goes into Hws (m * rows * ldh elements of the compute dtype, as
 // the caller allocated it: ldh = L in fp32; in bf16 at least L, a multiple of
@@ -939,6 +1324,12 @@ int gram_tri_q(const void* Hq, const void* S, const void* T, void* G, void* R, i
   return static_cast<int>(cudaGetLastError());
 }
 
+// Tp: T itself where D % 8 == 0, else a buffer of m N 8 ceil(D / 8) values
+int gram_tri_bf16_wgmma(const void* H, const void* T, void* Tp, void* G, void* R, int m,
+                        int N, int L, int D, void* stream) {
+  return gram_wgmma<false>(H, T, Tp, G, R, m, N, L, D, stream);
+}
+
 int gram_dense_f32(const void* H, const void* T, void* G, void* R, int N, int L, int D,
                    void* stream) {
   cudaGetLastError();
@@ -958,6 +1349,14 @@ int gram_dense_bf16(const void* H, const void* T, void* G, void* R, int N, int L
           static_cast<const __nv_bfloat16*>(H), static_cast<const __nv_bfloat16*>(T),
           static_cast<float*>(G), static_cast<float*>(R), N, L, D);
   return static_cast<int>(cudaGetLastError());
+}
+
+// dynamic shared memory of a gram_wgmma_kernel block, in bytes
+int gram_wgmma_smem_bytes() { return static_cast<int>(kWgSmem); }
+
+int gram_dense_bf16_wgmma(const void* H, const void* T, void* Tp, void* G, void* R, int N,
+                          int L, int D, void* stream) {
+  return gram_wgmma<true>(H, T, Tp, G, R, 1, N, L, D, stream);
 }
 
 }  // extern "C"

@@ -16,6 +16,11 @@ sample rows of all m agents at a time, into a workspace that
 ``FUSED_WORKSPACE_BYTES`` bounds (``fused_chunks`` is the plan), then adds
 each chunk's statistics into G and R; ``LAST_FUSED`` records what its last
 call on the card launched.
+
+bf16 ``gram_tri`` and ``gram_dense`` run one of two bodies, chosen by shape
+(``gram_body``): the tensor-core body (TMA + wgmma) where its copies can
+read H, else the FMA body that fp32 runs; ``LAST_GRAM`` records which body
+the last call on the card ran.
 """
 
 from __future__ import annotations
@@ -46,6 +51,9 @@ FUSED_WORKSPACE_BYTES = 256 * 2**20
 # launches: chunks, sample rows its hidden-layer grids covered (N when H is
 # computed once), and its workspace's bytes
 LAST_FUSED = {"chunks": 0, "hidden_rows": 0, "workspace_bytes": 0}
+# which body the last gram_tri or gram_dense call on the card ran, recorded
+# where it launches ("wgmma" or "fma", see gram_body)
+LAST_GRAM = {"kernel": None, "body": None}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -65,10 +73,17 @@ def library() -> ctypes.CDLL:
         fn = getattr(lib, name)
         fn.argtypes = [_P, _P, _P, _P, _I, _I, _I, _I, _P]
         fn.restype = _I
+    # the tensor-core entries also take the buffer T is read from (t_buffer)
+    lib.gram_tri_bf16_wgmma.argtypes = [_P] * 5 + [_I] * 4 + [_P]
+    lib.gram_tri_bf16_wgmma.restype = _I
+    lib.gram_dense_bf16_wgmma.argtypes = [_P] * 5 + [_I] * 3 + [_P]
+    lib.gram_dense_bf16_wgmma.restype = _I
     for name in ("gram_fused_chunk_f32", "gram_fused_chunk_bf16"):
         fn = getattr(lib, name)
         fn.argtypes = [_P] * 7 + [_I] * 9 + [_P]
         fn.restype = _I
+    lib.gram_wgmma_smem_bytes.argtypes = []
+    lib.gram_wgmma_smem_bytes.restype = _I
     lib.gram_tri_q.argtypes = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]
     lib.gram_tri_q.restype = _I
     for name in ("gram_dense_f32", "gram_dense_bf16"):
@@ -105,6 +120,35 @@ def fused_chunks(m: int, N: int, L: int, precision: str):
     return [(n0, min(rows, N - n0)) for n0 in range(0, N, rows)]
 
 
+def gram_body(dtype: torch.dtype, L: int, h_ptr: int) -> str:
+    """The body a bf16 or fp32 Gram launch runs: ``"wgmma"`` (TMA copies of
+    H into swizzled shared memory, wgmma on the tensor cores) for bf16 H
+    whose rows are a multiple of 8 values (16-byte strides) and whose base
+    ``h_ptr`` lies on 16 bytes, which is all TMA needs of H; ``"fma"`` (fp32
+    FMAs on the CUDA cores, bf16 widened) otherwise.  T does not enter: the
+    tensor-core body reads it from ``t_buffer``."""
+    if dtype == torch.bfloat16 and L % 8 == 0 and h_ptr % 16 == 0:
+        return "wgmma"
+    return "fma"
+
+
+def t_buffer(T: torch.Tensor) -> torch.Tensor:
+    """Where the tensor-core body reads T (..., N, D) from: rows of
+    8 ceil(D / 8) values (16-byte strides) on 16 bytes.  T itself where it
+    already is so; else an empty buffer of that shape, which the launch
+    fills with T and zero columns before its Gram grid reads it."""
+    Dp = -(-T.shape[-1] // 8) * 8
+    if Dp == T.shape[-1] and T.data_ptr() % 16 == 0:
+        return T
+    return torch.empty((*T.shape[:-1], Dp), dtype=T.dtype, device=T.device)
+
+
+def _entry(lib, kernel_name: str, dtype: torch.dtype, body: str):
+    suffix = ("f32" if dtype == torch.float32
+              else "bf16_wgmma" if body == "wgmma" else "bf16")
+    return getattr(lib, f"{kernel_name}_{suffix}")
+
+
 def gram_tri(H: torch.Tensor, T: torch.Tensor):
     """G = H^T H (symmetric) and R = H^T T for all m agents in one launch.
 
@@ -120,14 +164,19 @@ def gram_tri(H: torch.Tensor, T: torch.Tensor):
     if T.shape[:2] != (m, N):
         raise ValueError(f"T shape {tuple(T.shape)} does not match H {tuple(H.shape)}")
     _check_sizes(m, N, L, D)
-    lib = library()
-    fn = lib.gram_tri_bf16 if H.dtype == torch.bfloat16 else lib.gram_tri_f32
+    body = gram_body(H.dtype, L, H.data_ptr())
+    fn = _entry(library(), "gram_tri", H.dtype, body)
+    # the tensor-core entry also takes the buffer it reads T from, held
+    # here until the launch is on the stream (which orders any reuse after it)
+    Tp = t_buffer(T) if body == "wgmma" else None
+    t_args = (T.data_ptr(),) if Tp is None else (T.data_ptr(), Tp.data_ptr())
     G = torch.empty((m, L, L), dtype=torch.float32, device=H.device)
     R = torch.empty((m, L, D), dtype=torch.float32, device=H.device)
     stream = torch.cuda.current_stream(H.device).cuda_stream
-    raise_on(fn(H.data_ptr(), T.data_ptr(), G.data_ptr(), R.data_ptr(),
+    raise_on(fn(H.data_ptr(), *t_args, G.data_ptr(), R.data_ptr(),
                 m, N, L, D, stream), "gram_tri")
     LAUNCHES["gram_tri"] += 1
+    LAST_GRAM.update(kernel="gram_tri", body=body)
     return G, R
 
 
@@ -244,12 +293,15 @@ def gram_dense(H: torch.Tensor, T: torch.Tensor):
     if T.shape[0] != N:
         raise ValueError(f"T shape {tuple(T.shape)} does not match H {tuple(H.shape)}")
     _check_sizes(1, N, L, D)
-    lib = library()
-    fn = lib.gram_dense_bf16 if H.dtype == torch.bfloat16 else lib.gram_dense_f32
+    body = gram_body(H.dtype, L, H.data_ptr())
+    fn = _entry(library(), "gram_dense", H.dtype, body)
+    Tp = t_buffer(T) if body == "wgmma" else None
+    t_args = (T.data_ptr(),) if Tp is None else (T.data_ptr(), Tp.data_ptr())
     G = torch.empty((L, L), dtype=torch.float32, device=H.device)
     R = torch.empty((L, D), dtype=torch.float32, device=H.device)
     stream = torch.cuda.current_stream(H.device).cuda_stream
-    raise_on(fn(H.data_ptr(), T.data_ptr(), G.data_ptr(), R.data_ptr(),
+    raise_on(fn(H.data_ptr(), *t_args, G.data_ptr(), R.data_ptr(),
                 N, L, D, stream), "gram_dense")
     LAUNCHES["gram_dense"] += 1
+    LAST_GRAM.update(kernel="gram_dense", body=body)
     return G, R

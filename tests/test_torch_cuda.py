@@ -217,6 +217,144 @@ def test_gram_dense_matches_plain(gen, N, L, D, precision):
     assert _rel(G, Gr) <= TOL[precision] and _rel(R, Rr) <= TOL[precision]
 
 
+def _gram_bf16(kind, m, N, L, D, gen):
+    """bf16 H (scaled to unit rows) and T for ``kind`` (one agent for the
+    dense baseline), the call and its plain version."""
+    shape = (N, L) if kind == "gram_dense" else (m, N, L)
+    H = (torch.randn(*shape, device="cuda", generator=gen) / L**0.5).bfloat16()
+    T = torch.randn(*shape[:-1], D, device="cuda", generator=gen).bfloat16()
+    return H, T, getattr(kernel, kind)
+
+
+@pytest.mark.parametrize("m", [1, 3])
+@pytest.mark.parametrize("N", [1, 63, 64, 65, 1000])     # 64-sample stages
+@pytest.mark.parametrize("L", [8, 64, 120, 136, 256, 296])  # boxes, tiles, pairs
+def test_gram_tri_bf16_wgmma_at_the_tile_edges(gen, L, N, m):
+    """The tensor-core body at the edges of its 64-sample stages, 64-column
+    boxes, 128-column tiles and two-tile blocks: within TOL of the plain
+    version, G exactly symmetric, and the call recorded that body."""
+    H, T, fn = _gram_bf16("gram_tri", m, N, L, 3, gen)
+    G, R = fn(H, T)
+    torch.cuda.synchronize()
+    assert kernel.LAST_GRAM == {"kernel": "gram_tri", "body": "wgmma"}
+    Gr, Rr = ref.gram_ref(H, T)
+    assert torch.equal(G, G.mT)
+    assert _rel(G, Gr) <= TOL["bf16"] and _rel(R, Rr) <= TOL["bf16"]
+
+
+@pytest.mark.parametrize("N", [1, 63, 64, 65, 1000])
+@pytest.mark.parametrize("L", [8, 64, 120, 136, 256, 296])
+def test_gram_dense_bf16_wgmma_at_the_tile_edges(gen, L, N):
+    H, T, fn = _gram_bf16("gram_dense", 1, N, L, 3, gen)
+    G, R = fn(H, T)
+    torch.cuda.synchronize()
+    assert kernel.LAST_GRAM == {"kernel": "gram_dense", "body": "wgmma"}
+    Gr, Rr = ref.gram_ref(H, T)
+    assert _rel(G, Gr) <= TOL["bf16"] and _rel(R, Rr) <= TOL["bf16"]
+
+
+@pytest.mark.parametrize("N", [63, 64, 65, 129, 1000])
+@pytest.mark.parametrize("kind", ["gram_tri", "gram_dense"])
+def test_gram_bf16_wgmma_is_exact_on_integers(gen, kind, N):
+    """On small-integer inputs every product and partial sum is exact in
+    fp32, so the tensor-core body must equal its plain version exactly:
+    one 64-sample stage lost shows here at any N, where TOL cannot see it
+    at large N."""
+    m, L, D = 3, 264, 9
+    shape = (N, L) if kind == "gram_dense" else (m, N, L)
+    H = torch.randint(-2, 3, shape, device="cuda", generator=gen).bfloat16()
+    T = torch.randint(-2, 3, (*shape[:-1], D), device="cuda", generator=gen).bfloat16()
+    G, R = getattr(kernel, kind)(H, T)
+    torch.cuda.synchronize()
+    assert kernel.LAST_GRAM == {"kernel": kind, "body": "wgmma"}
+    Gr, Rr = ref.gram_ref(H, T)
+    assert torch.equal(G, Gr) and torch.equal(R, Rr)
+
+
+@pytest.mark.parametrize("D", [1, 8, 9, 16, 17, 33])   # R's 8-column groups, passes
+@pytest.mark.parametrize("kind", ["gram_tri", "gram_dense"])
+def test_gram_bf16_wgmma_r_over_several_passes(gen, kind, D):
+    H, T, fn = _gram_bf16(kind, 2, 200, 264, D, gen)
+    G, R = fn(H, T)
+    torch.cuda.synchronize()
+    assert kernel.LAST_GRAM == {"kernel": kind, "body": "wgmma"}
+    Gr, Rr = ref.gram_ref(H, T)
+    assert _rel(G, Gr) <= TOL["bf16"] and _rel(R, Rr) <= TOL["bf16"]
+
+
+@pytest.mark.parametrize("kind", ["gram_tri", "gram_dense"])
+def test_gram_bf16_takes_views_off_16_bytes(gen, kind):
+    """H off 16 bytes with L % 8 == 0: TMA cannot read it, so the body
+    choice names the FMA body, which runs and agrees."""
+    m, N, L, D = 2, 100, 136, 3
+    shape = (N, L) if kind == "gram_dense" else (m, N, L)
+    H = _off16(shape, torch.bfloat16, gen)
+    T = torch.randn(*shape[:-1], D, device="cuda", generator=gen).bfloat16()
+    assert kernel.gram_body(H.dtype, L, H.data_ptr()) == "fma"
+    G, R = getattr(kernel, kind)(H, T)
+    torch.cuda.synchronize()
+    assert kernel.LAST_GRAM == {"kernel": kind, "body": "fma"}
+    Gr, Rr = ref.gram_ref(H, T)
+    assert _rel(G, Gr) <= TOL["bf16"] and _rel(R, Rr) <= TOL["bf16"]
+
+
+@pytest.mark.parametrize("kind", ["gram_tri", "gram_dense"])
+def test_gram_bf16_wgmma_reads_t_off_16_bytes_from_a_copy(gen, kind):
+    """T off 16 bytes with D % 8 == 0: the tensor-core body fills its buffer
+    with T and still agrees."""
+    m, N, L, D = 2, 100, 136, 8
+    shape = (N, L) if kind == "gram_dense" else (m, N, L)
+    H = (torch.randn(*shape, device="cuda", generator=gen) / L**0.5).bfloat16()
+    T = _off16((*shape[:-1], D), torch.bfloat16, gen)
+    G, R = getattr(kernel, kind)(H, T)
+    torch.cuda.synchronize()
+    assert kernel.LAST_GRAM == {"kernel": kind, "body": "wgmma"}
+    Gr, Rr = ref.gram_ref(H, T)
+    assert _rel(G, Gr) <= TOL["bf16"] and _rel(R, Rr) <= TOL["bf16"]
+
+
+def test_gram_wgmma_entries_refuse_what_tma_cannot_read(gen):
+    """The C entries refuse L % 8 != 0, an H off 16 bytes, and T read in
+    place where its rows are not a multiple of 8 values, before they launch
+    anything."""
+    lib = kernel.library()
+    stream = torch.cuda.current_stream().cuda_stream
+    G = torch.empty(2, 16, 16, device="cuda")
+    R = torch.empty(2, 16, 3, device="cuda")
+    T = torch.zeros(2, 8, 3, dtype=torch.bfloat16, device="cuda")
+    Tp = kernel.t_buffer(T)
+    cases = [(torch.zeros(2, 8, 12, dtype=torch.bfloat16, device="cuda"), Tp),
+             (_off16((2, 8, 16), torch.bfloat16, gen), Tp),
+             (torch.zeros(2, 8, 16, dtype=torch.bfloat16, device="cuda"), T)]
+    for H, buf in cases:
+        m, N, L = H.shape
+        assert lib.gram_tri_bf16_wgmma(H.data_ptr(), T.data_ptr(), buf.data_ptr(),
+                                       G.data_ptr(), R.data_ptr(), m, N, L, 3,
+                                       stream) != 0
+        assert lib.gram_dense_bf16_wgmma(H.data_ptr(), T.data_ptr(), buf.data_ptr(),
+                                         G.data_ptr(), R.data_ptr(), N, L, 3,
+                                         stream) != 0
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("kind", ["gram_tri", "gram_dense"])
+def test_gram_bf16_launch_failure_raises(gen, monkeypatch, kind):
+    """No fallback: a launch of the tensor-core body that fails raises, and
+    nothing runs the FMA body in its place."""
+    class Refusing:
+        def __getattr__(self, name):
+            if name.endswith("_wgmma"):
+                return lambda *args: 1     # cudaErrorInvalidValue
+            raise AssertionError(f"{name} called after the body was chosen")
+
+    H, T, fn = _gram_bf16(kind, 2, 64, 128, 3, gen)
+    monkeypatch.setattr(kernel, "library", lambda: Refusing())
+    before = kernel.LAUNCHES[kind]
+    with pytest.raises(RuntimeError, match=f"{kind} launch failed"):
+        fn(H, T)
+    assert kernel.LAUNCHES[kind] == before
+
+
 def test_cuda_ops_launch_and_never_take_the_plain_version(gen):
     """Every op on CUDA tensors counts one launch of its kernel; the int8
     op's kernel agrees with its emulation on the same draws."""

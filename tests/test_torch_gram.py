@@ -422,3 +422,76 @@ def test_library_name_follows_the_shared_headers(monkeypatch, tmp_path):
     assert first.name.startswith("gram-") and first.suffix == ".so"
     (tmp_path / "ptx.cuh").write_text("// two\n")
     assert _build.library_path(tkernel.SOURCE) != first
+
+
+# ------------------------------------------- the bf16 body, chosen by shape
+
+def _bf16(shape):
+    return torch.zeros(shape, dtype=torch.bfloat16)
+
+
+def _off16(shape):
+    """A contiguous bf16 view one element past its buffer's start, so off
+    16 bytes."""
+    n = int(np.prod(shape))
+    view = _bf16(n + 1)[1:].view(shape)
+    assert view.is_contiguous() and view.data_ptr() % 16 != 0
+    return view
+
+
+@pytest.mark.parametrize("L", [8, 64, 120, 136, 256, 296, 2048])
+def test_gram_body_takes_the_tensor_cores_for_bf16_rows_tma_can_read(L):
+    """bf16 H with L % 8 == 0 (16-byte row strides) on 16 bytes: TMA + wgmma."""
+    H = _bf16((2, 3, L))
+    assert H.data_ptr() % 16 == 0
+    assert tkernel.gram_body(H.dtype, L, H.data_ptr()) == "wgmma"
+
+
+@pytest.mark.parametrize("case", ["fp32", "L300", "L4", "offset_view"])
+def test_gram_body_takes_the_fma_body_elsewhere(case):
+    """fp32, bf16 rows that are not a multiple of 8 values, and a bf16 view
+    off 16 bytes take the FMA body."""
+    H = {"fp32": torch.zeros(2, 3, 2048), "L300": _bf16((2, 3, 300)),
+         "L4": _bf16((2, 3, 4)), "offset_view": _off16((2, 3, 2048))}[case]
+    assert tkernel.gram_body(H.dtype, H.shape[-1], H.data_ptr()) == "fma"
+
+
+@pytest.mark.parametrize("shape", [(8, 2048, 2048, 3), (8, 8192, 2048, 8),
+                                   (1, 8192, 2048, 3)],
+                         ids=["main", "full", "dense_main"])
+def test_gram_body_of_the_main_and_full_shapes(shape):
+    """The bf16 stream's H as ``ops`` hands it over (cast, contiguous) at
+    the main path's and the full shape's widths takes the tensor cores
+    (the body depends on the dtype, L and H's base, not on m or N)."""
+    m, _, L, _ = shape
+    H, _ = tops._cast(torch.zeros(m, 2, L), torch.zeros(m, 2, 3), "bf16")
+    H = H.contiguous()
+    assert tkernel.gram_body(H.dtype, L, H.data_ptr()) == "wgmma"
+
+
+def test_cpu_gram_calls_record_no_body():
+    """``LAST_GRAM`` is written where a kernel launches: the plain versions
+    on CPU tensors leave it as it was."""
+    tkernel.LAST_GRAM.update(kernel="sentinel", body="sentinel")
+    H, T = _bf16((2, 4, 16)), _bf16((2, 4, 3))
+    tkernel.gram_tri(H, T)
+    tkernel.gram_dense(H[0], T[0])
+    assert tkernel.LAST_GRAM == {"kernel": "sentinel", "body": "sentinel"}
+
+
+@pytest.mark.parametrize("D", [1, 3, 8, 9, 16, 33])
+def test_t_buffer_has_rows_of_16_bytes(D):
+    """Where the tensor-core body reads T from: rows of 8 ceil(D / 8) values,
+    contiguous, on 16 bytes; T itself where it already is so, else a new
+    buffer (which the launch fills)."""
+    T = torch.from_numpy(_draw(D, (2, 5, D))[0]).bfloat16()
+    Tp = tkernel.t_buffer(T)
+    assert Tp.shape == (2, 5, -(-D // 8) * 8) and Tp.is_contiguous()
+    assert Tp.data_ptr() % 16 == 0 and Tp.dtype == T.dtype
+    assert (Tp is T) == (D % 8 == 0)
+
+
+def test_t_buffer_of_a_view_off_16_bytes_is_new():
+    T = _off16((2, 5, 8))
+    Tp = tkernel.t_buffer(T)
+    assert Tp is not T and Tp.shape == T.shape and Tp.data_ptr() % 16 == 0
