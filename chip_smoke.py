@@ -8,19 +8,21 @@ Phases (any failure raises and the script exits non-zero):
   2. build: nvcc compiles the Gram, sliding-window attention, RG-LRU and
      mLSTM kernels from ``src/repro_torch``, one nvcc per source, all at
      once; ptxas's registers, spill bytes and static shared memory of
-     every kernel, and the bf16 Gram body's dynamic shared memory, on the
+     every kernel, and the Gram bodies' dynamic shared memory, on the
      build line;
   3. kernels: each CUDA kernel against its plain PyTorch version at the
      main path's shape, the full backbone shape (m=8, N=8192, L=2048, D=8,
      d_in=256) and a ragged shape (m=3, N=1000, L=300, D=3, d_in=70), in
      fp32 and bf16 (bf16 ``gram_tri`` and ``gram_dense`` also at the main
-     path's shape and at L=296, where they run the tensor-core body; each
-     Gram case records the body it ran; ``gram_tri_q``: int8 from one
+     path's shape and at L=296; each Gram case records the body it ran,
+     the FMA body in fp32 and the tensor cores in bf16, and the wrapper's
+     host time per call; ``gram_tri_q``: int8 from one
      Hq/scales per case, block_l 128 and 32, its quantization pass timed
      apart;
      ``gram_dense``: one agent); G must be exactly symmetric (all but the
-     dense baseline); bf16 ``gram_tri`` and ``gram_dense`` must also equal
-     their plain versions exactly on small-integer inputs; ``gram_fused`` also reports its workspace and
+     dense baseline); ``gram_tri`` and ``gram_dense`` in fp32 and bf16 must
+     also equal their plain versions exactly on small-integer inputs;
+     ``gram_fused`` also reports its workspace and
      chunks (two at the full shape in fp32); ``swa`` at phase 6's shape,
      recurrentgemma-2b's and
      h2o-danube's at S = 8192, and a ragged one, also held in norm
@@ -57,9 +59,10 @@ Phases (any failure raises and the script exits non-zero):
      sLSTM; bf16 compute, fp32 weights from a seeded generator), as phase 6:
      every mLSTM block launched ``mlstm``, the same checks, and one mLSTM
      and one sLSTM block timed apart at the route's (8, 4096, 2048);
-  9. the bf16 ``gram_tri`` and ``gram_dense`` cases of phase 3 at the main
-     path's and the full shape split by ``torch.profiler`` into device
-     time per kernel, theirs and the library call's: last, because a
+  9. the ``gram_tri`` and ``gram_dense`` cases of phase 3 at the main
+     path's and the full shape, and the bf16 ragged ones, split by
+     ``torch.profiler`` into device time per kernel, theirs and the
+     library call's: last, because a
      profiler session slows the host side of every later launch in the
      process.
 
@@ -180,23 +183,40 @@ def rel_err(torch, got, want) -> tuple[float, float]:
     return diff, diff / max(float(want.abs().max()), 1e-30)
 
 
-def integer_gram_err(torch, kernel, ref, kind, m, N, L, D, gen) -> float:
-    """max |kernel - plain| over G and R of bf16 ``gram_tri`` (``gram_dense``
-    at one agent) on inputs of small integers, -2 .. 2: every product and
-    every partial sum (at most 4 N) is an integer that fp32 holds exactly,
-    so any order of the sums gives the same G and R, and a sound body reads
-    exactly 0.  A 64-sample stage whose products are lost reads at least 1
-    on G's diagonal; against ``TOL["bf16"]``, which holds Gaussian inputs
-    relative to max |plain|, such a loss reads ~1e-2 at N = 8192 and
-    passes (PERF.md §6)."""
+def integer_gram_err(torch, kernel, ref, kind, m, N, L, D, gen,
+                     precision="bf16") -> float:
+    """max |kernel - plain| over G and R of ``gram_tri`` (``gram_dense`` at
+    one agent) in ``precision`` on inputs of small integers, -2 .. 2: every
+    product and every partial sum (at most 4 N) is an integer that fp32
+    holds exactly, so any order of the sums gives the same G and R, and a
+    sound body reads exactly 0.  A stage whose products are lost (64
+    samples in bf16, 16 in fp32) reads at least 1 on G's diagonal, and a
+    stage read before its copies landed reads off wherever the stale values
+    differ; against ``TOL["bf16"]``, which holds Gaussian inputs relative
+    to max |plain|, a lost bf16 stage reads ~1e-2 at N = 8192 and passes
+    (PERF.md §6)."""
     assert 4 * N < 2**24, "partial sums would leave fp32's exact integers"
+    dtype = torch.bfloat16 if precision == "bf16" else torch.float32
     shape = (N, L) if kind == "gram_dense" else (m, N, L)
-    H = torch.randint(-2, 3, shape, device="cuda", generator=gen).bfloat16()
+    H = torch.randint(-2, 3, shape, device="cuda", generator=gen).to(dtype)
     T = torch.randint(-2, 3, (*shape[:-1], D), device="cuda",
-                      generator=gen).bfloat16()
+                      generator=gen).to(dtype)
     G, R = getattr(kernel, kind)(H, T)
     Gp, Rp = ref.gram_ref(H, T)
     return max(float((G - Gp).abs().max()), float((R - Rp).abs().max()))
+
+
+def host_us(torch, fn, calls: int = 20) -> float:
+    """Host microseconds per call of ``fn``, from a clock around ``calls``
+    calls that nothing synchronizes (the card runs behind)."""
+    fn()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    spent = time.perf_counter() - t
+    torch.cuda.synchronize()
+    return spent / calls * 1e6
 
 
 def norm_rel(torch, got, want) -> float:
@@ -567,12 +587,14 @@ def kernel_case(torch, kernel, ref, kind, shape, precision, activation,
                     recomputed_hidden_flops=2 * m * d_in * L
                     * (launched["hidden_rows"] - N))
     if kind in ("gram_tri", "gram_dense"):
-        case["body"] = body
-    if kind in ("gram_tri", "gram_dense") and precision == "bf16":
+        # the wrapper's host time per call, and the library call's, taken
+        # before any profiler session (phase 9 has the device time)
+        case.update(body=body, host_us=host_us(torch, run),
+                    library_host_us=host_us(torch, library))
         case["integer_abs_err"] = integer_gram_err(
-            torch, kernel, ref, kind, m, N, L, D, gen)
+            torch, kernel, ref, kind, m, N, L, D, gen, precision)
         check(case["integer_abs_err"] == 0.0,
-              f"{kind} {label} bf16: off its plain version by "
+              f"{kind} {label} {precision}: off its plain version by "
               f"{case['integer_abs_err']:.3g} on integer inputs, where both "
               f"are exact")
     if kind == "gram_dense":
@@ -584,26 +606,27 @@ def kernel_case(torch, kernel, ref, kind, shape, precision, activation,
 
 
 def gram_device_splits(torch, kernel, cases, gen) -> None:
-    """Phase 9: each bf16 ``gram_tri``/``gram_dense`` case of phase 3 that
-    ran the tensor-core body at the main path's or the full shape gets
-    ``device_ms`` and ``library_device_ms``, the device time per call of
-    each kernel that it and its library call launch (``device_split``),
-    apart from the host time a single timed call carries.  It runs after
-    every timed phase: after a profiler session the host side of each
-    launch in the process is slower (phase 8's encode by 11-23% on an
-    H100, PERF.md §6)."""
+    """Phase 9: each ``gram_tri``/``gram_dense`` case of phase 3 at the main
+    path's or the full shape (fp32 and bf16), and each bf16 ragged one,
+    gets ``device_ms`` and ``library_device_ms``, the device time per call
+    of each kernel that it and its library call launch (``device_split``),
+    apart from the host time a single timed call carries (``host_us``).
+    It runs after every timed phase: after a profiler session the host side
+    of each launch in the process is slower (phase 8's encode by 11-23% on
+    an H100, PERF.md §6)."""
     for kind in ("gram_tri", "gram_dense"):
         mm = torch.mm if kind == "gram_dense" else torch.bmm
         for case in cases[kind]:
-            if (case.get("body") != "wgmma"
-                    or case["case"] not in ("main_path", "full")):
+            if not (case["case"] in ("main_path", "full")
+                    or case["dtype"] == "bf16"):
                 continue
+            dtype = torch.bfloat16 if case["dtype"] == "bf16" else torch.float32
             m, N, L, D = (case["shape"][k] for k in "mNLD")
             shape = (N, L) if kind == "gram_dense" else (m, N, L)
             H = (torch.randn(*shape, device="cuda", generator=gen)
-                 / math.sqrt(L)).bfloat16()
+                 / math.sqrt(L)).to(dtype)
             T = torch.randn(*shape[:-1], D, device="cuda",
-                            generator=gen).bfloat16()
+                            generator=gen).to(dtype)
             case.update(
                 device_ms=device_split(
                     torch, lambda: getattr(kernel, kind)(H, T)),
@@ -852,6 +875,8 @@ def main() -> int:
           "nvcc_seconds": dict(_build.build_seconds), "ptxas": ptxas,
           "gram_wgmma_dynamic_smem_bytes":
               kernel.library().gram_wgmma_smem_bytes(),
+          "gram_f32_dynamic_smem_bytes":
+              kernel.library().gram_f32_smem_bytes(),
           "swa_dynamic_smem_bytes": {
               str(dtype).removeprefix("torch."): {
                   D: swa_kernel.smem_bytes(D, dtype) for D in (64, 120, 256)}
@@ -880,9 +905,8 @@ def main() -> int:
                 cases["gram_fused"].append(kernel_case(
                     torch, kernel, ref, "gram_fused", shape, precision,
                     activation, gen, label))
-    # bf16 gram_tri on the tensor-core body: the main path's shape, and a
-    # ragged N with L % 8 == 0 but L % 128 != 0 (L = 300 above takes the
-    # FMA body)
+    # bf16 gram_tri at the main path's shape, and a ragged N with
+    # L % 8 == 0 but L % 128 != 0 (L = 300 above reads a padded copy of H)
     ragged_tc_shape = (3, 1000, 296, 3, 70)
     for label, shape in (("main_path", main_shape),
                          ("ragged_l296", ragged_tc_shape)):
@@ -939,12 +963,11 @@ def main() -> int:
             ("input_gate_-100", (2, 2, 1000, 64, 256), "fp32", "neg100",
              False),
             ("oracle", (1, 4, 1024, 1024, 256), "fp32", "std", True))]
-    # the bf16 Gram cases ran the body that the shape names: the tensor
-    # cores where TMA can read H (L % 8 == 0), the FMA body at L = 300
+    # every Gram case ran its dtype's body: the FMA body in fp32, the
+    # tensor cores in bf16 (L = 300 from the padded copy of H)
     for name in ("gram_tri", "gram_dense"):
         for c in cases[name]:
-            want = ("fma" if c["dtype"] == "fp32" or c["shape"]["L"] % 8
-                    else "wgmma")
+            want = "fma" if c["dtype"] == "fp32" else "wgmma"
             check(c["body"] == want, f"{name} {c['case']} {c['dtype']} ran "
                   f"the {c['body']} body, not {want}")
     kernels_seconds = time.perf_counter() - t0

@@ -9,31 +9,48 @@
 // What bounds them on an H100: operations.  G costs m*N*L^2 useful FMAs-worth of
 // flops on the lower triangle and every byte of H is read once per tile pair
 // that touches it, so the arithmetic intensity is ~BL/2 flops per byte even in
-// this simple form.  fp32 runs on the CUDA cores (no TF32 anywhere), so its
-// floor is the 67 TFLOP/s fp32 rate.  bf16 gram_tri and gram_dense are bound
-// by the 989 TFLOP/s bf16 tensor-core rate, which only wgmma reaches: for
-// L % 8 == 0 and H on 16 bytes they run gram_wgmma_kernel (TMA + wgmma, see
-// below); other bf16 shapes widen to fp32 and take the FMA body.  int8
+// this simple form.  fp32 runs on the CUDA cores: IEEE fp32 FMAs, no TF32 and
+// no tensor-core emulation of fp32 (3xTF32, split bf16), so its floor is the
+// 67 TFLOP/s fp32 rate.  bf16 gram_tri and gram_dense are bound by the 989
+// TFLOP/s bf16 tensor-core rate, which only wgmma reaches: every bf16 call
+// runs gram_wgmma_kernel (TMA + wgmma, see below), reading H and T from
+// copies padded to rows of 16 bytes where they are not so already.  int8
 // (gram_tri_q) runs on the tensor cores through mma.sync m16n8k32 with int32
 // accumulators; its floor is the 1979 TOP/s int8 rate, far below what
 // byte-wise staging without a pipeline reaches (a TMA + wgmma version is
 // later work).
 //
-// Design:
-//  * One thread block per (agent, lower-triangular tile pair (i, j <= i)); the
-//    pair is decoded from blockIdx.x with exact integer arithmetic.  The block
-//    walks the whole sample axis N itself (the TPU's sequential n grid axis).
-//  * 128 x 128 G tile per block, 256 threads, an 8 x 8 fp32 register tile per
-//    thread fed from 16-row slices of H staged in shared memory; every update
-//    is an explicit fmaf, so a diagonal tile is computed symmetrically.
-//  * The block writes its tile to (i, j) and the transpose to (j, i); on a
-//    diagonal tile only the lower half is written (and mirrored), so G leaves
-//    the kernel exactly symmetric.
-//  * R = H^T T rides the j == 0 block of each row i (one writer per R tile),
-//    16 target columns per pass over N; a second pass only for D > 16.
-//  * Ragged N and L are masked in the kernel: rows >= N and columns >= L load
-//    as 0, and nothing outside [0, L) is stored.  The wrapper never pads.
-//  * gram_tri_q keeps the grid and the mirror of gram_tri.  The quantization
+// The fp32 body (gram_f32_kernel: gram_tri, gram_dense and gram_fused's fp32
+// stage 2):
+//  * One 128 x 128 G tile per block, 256 threads, an 8 x 8 fp32 register
+//    tile per thread (g_update: 16 FMAs per 16-byte shared load, a's loads
+//    broadcast); every update an explicit fmaf with the samples in order,
+//    so a diagonal tile is computed symmetrically.  gram_tri: one block per
+//    (agent, lower-triangular tile pair (i, j <= i)), decoded from
+//    blockIdx.x with exact integer arithmetic; each tile is written to
+//    (i, j) and mirrored to (j, i), a diagonal tile its lower half only, so
+//    G leaves exactly symmetric.  gram_dense, the dense baseline of one
+//    agent: every (i, j), no mirror.  The block walks the whole sample axis
+//    itself (the TPU's sequential n grid axis).
+//  * The sample rows are staged by cp.async into a ring of FSTAGES = 4
+//    stages of FK = 16 samples x the 128 columns of tiles i and j in
+//    dynamic shared memory (68 KB): 16-byte copies where L % 4 == 0 and H
+//    lies on 16 bytes, zero-filling 4-byte copies otherwise (rows past N and
+//    columns past L read as 0; nothing outside [0, L) is stored).  One
+//    barrier a stage; cp.async.wait_group keeps the next three stages in
+//    flight while one is multiplied, so no slice's global latency is
+//    exposed.  Two blocks share an SM (at most 128 registers, no spills).
+//    Against 3 or 6 stages, 32-sample stages and one block an SM with a
+//    deeper ring, it was the fastest at gram_tri's main and full shapes
+//    and within 1% at gram_dense's on an H100 (PERF.md §6).
+//  * R = H^T T is spread over every block: R on the blocks of column 0
+//    alone made them the last of gram_dense's single wave (skipping R's
+//    products cut the call by 25% on an H100).  Tile k's rows are
+//    staged by nl blocks (gram_dense: (k, 0 .. nl - 1); the triangle:
+//    (k, 0 .. k) and (k + 1 .. nl - 1, k)), and slot s of them multiplies
+//    rows [s rpb, (s + 1) rpb) of the tile, rpb = ceil(128 / nl), against
+//    T staged in the same ring, one (row, column) item a thread.
+//  * gram_tri_q keeps the triangle's grid and mirror.  The quantization
 //    tile (block_n rows x block_l columns, one fp32 scale each) is part of the
 //    math, not of this tiling: block_l may be 32 inside a 128-wide G tile, so
 //    each row and column of the tile looks up its own scale.  Within one row
@@ -42,16 +59,14 @@
 //    rows); at each row-block end the int32 tile converts to fp32 and adds
 //    float(prod) * (s_i * s_j) to the fp32 accumulator, rounded in the
 //    reference's order (no FMA contraction).  R adds (q * s) * float(T_bf16)
-//    with fmaf.  int32 -> fp32 is exact while block_n * 127^2 <= 2^24; the
-//    wrapper refuses block_n above 1040.
-//  * gram_dense is the dense-tile baseline for one agent: one block per
-//    (i, j) tile pair, j > i included, no mirror, R on j == 0; the same
-//    staging and FMA path as gram_tri, twice the tiles.
+//    with fmaf on the blocks of column 0.  int32 -> fp32 is exact while
+//    block_n * 127^2 <= 2^24; the wrapper refuses block_n above 1040.
 //
 // gram_tri and gram_dense in bf16 on wgmma (gram_wgmma_kernel):
-//  * The output tiles and the stores are those above: 128 x 128 G tiles (the
+//  * The output tiles and G's stores are those above: 128 x 128 G tiles (the
 //    triangle's with the exact-symmetry mirror, or every (i, j) of one agent
-//    with no mirror), R on the blocks of column 0.  A block takes two tiles
+//    with no mirror); R here rides the blocks of column 0 (on the tensor
+//    cores its products are few beside G's).  A block takes two tiles
 //    side by side, (i, j0) and (i, j0 + 1), so that tile i is copied once
 //    for both: 1.5 tile copies per tile of products, not 2.  The triangle's
 //    rows hold blocks of two tiles where both are on or below the diagonal
@@ -74,14 +89,16 @@
 //    are issued.
 //    No wgmma sits behind a branch (each block shape has its own loop), or
 //    ptxas serializes them.
-//  * R = H_i^T T reuses the A operand.  T's rows (D bf16 values) are not
-//    16-byte strides where D % 8 != 0, so pad_t_kernel first writes T with
-//    zero columns up to a multiple of 8 into a buffer (2 m N 8 ceil(D / 8)
-//    bytes), and TMA copies it in 64-sample x 8-column boxes, each the B of
-//    an m64n8k16 wgmma; 16 columns a pass, as above.  Staged through the
-//    producer's registers instead, T's loads held each stage of the blocks
-//    of column 0 back (the slowest blocks: gram_dense bf16 full 0.20 against
-//    0.11 ms without them on an H100).
+//  * R = H_i^T T reuses the A operand.  TMA needs rows of 16 bytes on 16
+//    bytes: where H's or T's rows are not a multiple of 8 bf16 values, or
+//    the array is off 16 bytes, the wrapper hands a buffer (h_buffer,
+//    t_buffer) that pad_rows_kernel first fills with the rows and zero
+//    columns (both arrays in one launch); the zero columns add exact zeros,
+//    and nothing at or past L is stored.  T's copy is read in 64-sample x
+//    8-column boxes, each the B of an m64n8k16 wgmma; 16 columns a pass,
+//    as above.  Staged through the producer's registers instead, T's loads
+//    held each stage of the blocks of column 0 back (the slowest blocks:
+//    gram_dense bf16 full 0.20 against 0.11 ms without them on an H100).
 //  * Each finished tile is staged through the drained ring (row stride 129
 //    floats), so the tile and its transpose both leave in coalesced rows.
 //
@@ -109,7 +126,7 @@
 //  * Stage 2 adds the chunk's lower-triangular G and its R into the outputs:
 //    the first chunk stores, each later chunk loads, adds and stores, one
 //    owner per element (a diagonal tile still writes its lower half and
-//    mirrors it, so G stays exactly symmetric).  fp32: gram_tri's FMA body.
+//    mirrors it, so G stays exactly symmetric).  fp32: the fp32 body.
 //    bf16: gram_mma_kernel, mma.sync m16n8k16 bf16 -> fp32 on the 2 x 4
 //    layout of 64 x 32 warp sub-tiles of gram_tri_q (same accumulator row and
 //    column maps), fragments by ldmatrix.trans from row-major H tiles staged
@@ -122,12 +139,16 @@
 //    bytes of spill), so that two blocks share an SM.
 //
 // Interface: plain C, one entry per kernel and dtype, launched on the caller's
-// stream; each returns cudaGetLastError() of its launch.
+// stream; each returns cudaGetLastError() of its launch.  The dynamic shared
+// memory a kernel asks for above 48 KB is allowed once per device and
+// process (allow_dynamic_smem), not at every call.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <algorithm>
+#include <atomic>
 #include <cstdint>
 #include <type_traits>
 
@@ -143,11 +164,6 @@ constexpr int NT = 256;  // threads per block
 static_assert(NT == 256 && BL == 128, "thread layouts below assume 256 x 128");
 
 enum Activation { kSigmoid = 0, kTanh = 1, kRelu = 2, kGelu = 3 };
-
-__device__ __forceinline__ float to_float(float v) { return v; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
 
 __device__ __forceinline__ float activate(float x, int act) {
   switch (act) {
@@ -179,32 +195,12 @@ __device__ __forceinline__ int tile_index(int c, int p) {
   return (p < 4 ? 0 : 64) + c * 4 + (p & 3);
 }
 
-template <typename T>
-__device__ __forceinline__ void load_h_tile(float (*dst)[BL], const T* __restrict__ H,
-                                            int N, int L, int n0, int col0) {
-  for (int e = threadIdx.x; e < BK * BL; e += NT) {
-    const int k = e / BL, c = e % BL;
-    const int n = n0 + k, l = col0 + c;
-    dst[k][c] = (n < N && l < L) ? to_float(H[static_cast<size_t>(n) * L + l]) : 0.0f;
-  }
-}
-
-template <typename T>
-__device__ __forceinline__ void load_t_tile(float (*dst)[RD], const T* __restrict__ Tm,
-                                            int N, int D, int n0, int d0) {
-  for (int e = threadIdx.x; e < BK * RD; e += NT) {
-    const int k = e / RD, q = e % RD;
-    const int n = n0 + k, d = d0 + q;
-    dst[k][q] = (n < N && d < D) ? to_float(Tm[static_cast<size_t>(n) * D + d]) : 0.0f;
-  }
-}
-
-// acc[p][q] += sum_k hi[k][row(p)] * hj[k][col(q)]
-template <int SI, int SJ>
+// acc[p][q] += sum_k hi[k][row(p)] * hj[k][col(q)], k = 0 .. KS - 1 in order
+template <int KS, int SI, int SJ>
 __device__ __forceinline__ void g_update(const float (*hi)[SI], const float (*hj)[SJ],
                                          int ty, int tx, float acc[8][8]) {
 #pragma unroll
-  for (int k = 0; k < BK; ++k) {
+  for (int k = 0; k < KS; ++k) {
     const float4 a0 = *reinterpret_cast<const float4*>(&hi[k][ty * 4]);
     const float4 a1 = *reinterpret_cast<const float4*>(&hi[k][64 + ty * 4]);
     const float4 b0 = *reinterpret_cast<const float4*>(&hj[k][tx * 4]);
@@ -218,32 +214,16 @@ __device__ __forceinline__ void g_update(const float (*hi)[SI], const float (*hj
   }
 }
 
-// racc[q] += sum_k hi[k][l] * t[k][d0t + q], thread owns l = tid % 128 and
-// the 8 R columns d0t = (tid / 128) * 8 of the current 16-column pass.
-__device__ __forceinline__ void r_update(const float (*hi)[BL], const float (*t)[RD],
-                                         float racc[8]) {
-  const int l = threadIdx.x % BL, d0t = (threadIdx.x / BL) * 8;
-#pragma unroll
-  for (int k = 0; k < BK; ++k) {
-    const float h = hi[k][l];
-#pragma unroll
-    for (int q = 0; q < 8; ++q) racc[q] = fmaf(h, t[k][d0t + q], racc[q]);
-  }
-}
-
-// accumulate: add to what the outputs hold (a later chunk of gram_fused)
+// R rows of tile i (the thread's l = tid % 128) and its 8 columns
+// d0 + (tid / 128) * 8 of the current 16-column pass (gram_tri_q)
 __device__ __forceinline__ void store_r(float* __restrict__ Ra, const float racc[8],
-                                        int L, int D, int i, int d0,
-                                        bool accumulate = false) {
+                                        int L, int D, int i, int d0) {
   const int l = i * BL + threadIdx.x % BL;
   const int dbase = d0 + (threadIdx.x / BL) * 8;
   if (l >= L) return;
 #pragma unroll
   for (int q = 0; q < 8; ++q)
-    if (dbase + q < D) {
-      float* at = Ra + static_cast<size_t>(l) * D + dbase + q;
-      *at = accumulate ? *at + racc[q] : racc[q];
-    }
+    if (dbase + q < D) Ra[static_cast<size_t>(l) * D + dbase + q] = racc[q];
 }
 
 // One element of a lower-triangular tile and its mirror; G is exactly
@@ -255,44 +235,107 @@ __device__ __forceinline__ void store_g_pair(float* __restrict__ Ga, int L, int 
   Ga[static_cast<size_t>(gc) * L + gr] = v;
 }
 
-__device__ __forceinline__ void store_g(float* __restrict__ Ga, const float acc[8][8],
-                                       int L, int i, int j, int ty, int tx,
-                                       bool accumulate = false) {
+// ---------------------------------------------------------------------------
+// The fp32 Gram body: gram_tri, gram_dense and gram_fused's fp32 stage 2
+// ---------------------------------------------------------------------------
+
+constexpr int FK = 16;       // samples per pipeline stage
+constexpr int FSTAGES = 4;   // ring depth: copies run FSTAGES - 1 stages ahead
+
+struct F32Stage {
+  float hi[FK][BL];  // samples x the 128 columns of tile i
+  float hj[FK][BL];  // ... of tile j (unused on a diagonal tile)
+  float t[FK][RD];   // samples x the pass's 16 columns of T
+};
+constexpr size_t kF32Smem = FSTAGES * sizeof(F32Stage);  // dynamic, > 48 KB
+
+// Rows n0 .. n0 + FK - 1 of the 128 columns from col0 of row-major fp32 H
+// (rows x L) into dst by cp.async; rows >= rows and columns >= L are
+// zero-filled.  kVec (L % 4 == 0, H on 16 bytes): 16-byte copies, whole or
+// zero-filled whole; otherwise 4-byte copies.  A thread keeps one column
+// and steps down the rows.
+template <bool kVec>
+__device__ __forceinline__ void copy_h_f32(float (*dst)[BL], const float* __restrict__ H,
+                                           int rows, int L, int n0, int col0) {
+  constexpr int W = kVec ? 4 : 1;      // floats a copy
+  constexpr int STEP = NT / (BL / W);  // rows apart of one thread's copies
+  static_assert(FK % STEP == 0, "whole copies per thread");
+  const int c = (threadIdx.x % (BL / W)) * W, l = col0 + c, k0 = threadIdx.x / (BL / W);
+  const float* src = H + static_cast<size_t>(n0 + k0) * L + l;
 #pragma unroll
-  for (int p = 0; p < 8; ++p) {
-    const int r = tile_index(ty, p);
-#pragma unroll
-    for (int q = 0; q < 8; ++q) {
-      const int c = tile_index(tx, q);
-      const int gr = i * BL + r, gc = j * BL + c;
-      // a diagonal tile writes its lower half and mirrors it: exact symmetry
-      if (gr < L && gc < L && (i != j || r >= c))
-        store_g_pair(Ga, L, gr, gc, acc[p][q], accumulate);
-    }
+  for (int u = 0; u < FK / STEP; ++u) {
+    const int k = k0 + u * STEP;
+    const bool valid = n0 + k < rows && l < L;
+    if constexpr (kVec)
+      cp_async16(&dst[k][c], valid ? src : H, valid);
+    else
+      cp_async4(&dst[k][c], valid ? src : H, valid);
+    src += static_cast<size_t>(STEP) * L;
   }
 }
 
-// t_stride: elements between agents of T (N * D, or the whole sample axis's
-// for a gram_fused chunk); accumulate: add into G and R (later chunks).
-template <typename T>
-__global__ void __launch_bounds__(NT) gram_tri_kernel(const T* __restrict__ H,
-                                                      const T* __restrict__ Tg,
-                                                      float* __restrict__ G,
-                                                      float* __restrict__ R, int N,
-                                                      int L, int D, size_t t_stride,
-                                                      bool accumulate) {
-  __shared__ __align__(16) float hi_s[BK][BL];
-  __shared__ __align__(16) float hj_s[BK][BL];
-  __shared__ __align__(16) float t_s[BK][RD];
+// Rows n0 .. n0 + FK - 1 of T's 16 columns from d0 (rows of D floats, no
+// alignment to copy by: 4-byte copies), zero-filled past rows and D.
+__device__ __forceinline__ void copy_t_f32(float (*dst)[RD], const float* __restrict__ Tm,
+                                           int rows, int D, int n0, int d0) {
+  static_assert(FK % (NT / RD) == 0, "whole copies per thread");
+  const int q = threadIdx.x % RD, d = d0 + q, k0 = threadIdx.x / RD;
+#pragma unroll
+  for (int u = 0; u < FK / (NT / RD); ++u) {
+    const int k = k0 + u * (NT / RD), n = n0 + k;
+    const bool valid = n < rows && d < D;
+    cp_async4(&dst[k][q], valid ? Tm + static_cast<size_t>(n) * D + d : Tm, valid);
+  }
+}
 
-  const int a = blockIdx.y;
-  int i, j;
-  tri_decode(blockIdx.x, i, j);
-  const T* Ha = H + static_cast<size_t>(a) * N * L;
-  const T* Ta = Tg + static_cast<size_t>(a) * t_stride;
-  const bool diag = (i == j), owns_r = (j == 0);
-  const float(*hj)[BL] = diag ? hi_s : hj_s;
+// G = H^T H and R = H^T T in fp32 on the CUDA cores, one 128 x 128 tile a
+// block.  kDense: tile (blockIdx.y, blockIdx.x) of one agent, stored as
+// computed; otherwise the triangle's tile tri_decode(blockIdx.x) of agent
+// blockIdx.y, stored with its mirror.  H is (m, rows, L); t_stride: elements
+// between agents of T; accumulate: add into G and R (a later gram_fused
+// chunk, triangle only).
+//
+// R is split so that every block carries a share of it.  Each tile of rows
+// is staged by nl blocks: the dense row's (i, 0 .. nl - 1), or the
+// triangle's (k, 0 .. k) and (k + 1 .. nl - 1, k).  Slot s of those blocks
+// multiplies the tile's rows [s rpb, (s + 1) rpb), rpb = ceil(128 / nl):
+// block (i, j) takes tile i's rows of slot j and, off the triangle's
+// diagonal, tile j's rows of slot i.  A pass multiplies up to NT / dw of
+// those rows by dw = min(D, 16) columns of T, one (row, column) a thread;
+// a block walks the sample axis again only for further passes (G in the
+// first): at L 2048 (rpb 8) one pass for D <= 16.
+//
+// At most 128 registers, so that two blocks share an SM.
+template <bool kDense, bool kVec>
+__global__ void __launch_bounds__(NT, 2) gram_f32_kernel(
+    const float* __restrict__ H, const float* __restrict__ Tg, float* __restrict__ G,
+    float* __restrict__ R, int rows, int L, int D, size_t t_stride, bool accumulate) {
+  extern __shared__ float4 f32_smem[];
+  F32Stage* ring = reinterpret_cast<F32Stage*>(f32_smem);
+
+  int a = 0, i, j;
+  if (kDense) {
+    i = blockIdx.y;
+    j = blockIdx.x;
+  } else {
+    a = blockIdx.y;
+    tri_decode(blockIdx.x, i, j);
+  }
+  const float* Ha = H + static_cast<size_t>(a) * rows * L;
+  const float* Ta = Tg + static_cast<size_t>(a) * t_stride;
+  const bool diag = (i == j);
   const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
+
+  // this block's R rows: ni of tile i from ri0, then nr - ni of tile j from rj0
+  const int nl = (L + BL - 1) / BL, rpb = (BL + nl - 1) / nl;
+  const int ri0 = min(j * rpb, BL), ni = min(ri0 + rpb, BL) - ri0;
+  const int rj0 = min(i * rpb, BL);
+  const int nr = ni + (kDense || diag ? 0 : min(rj0 + rpb, BL) - rj0);
+  // a pass: up to 16 columns of T (dw of them) by the NT / dw rows that
+  // fill the block's threads, one (row, column) item a thread
+  const int dw = min(D, RD), r_rows = NT / dw;
+  const int d_pass = (D + dw - 1) / dw;
+  const int n_pass = max(1, (nr + r_rows - 1) / r_rows * d_pass);
 
   float acc[8][8];
 #pragma unroll
@@ -300,23 +343,64 @@ __global__ void __launch_bounds__(NT) gram_tri_kernel(const T* __restrict__ H,
 #pragma unroll
     for (int q = 0; q < 8; ++q) acc[p][q] = 0.0f;
 
-  const int n_pass = owns_r ? (D + RD - 1) / RD : 1;
+  const int steps = (rows + FK - 1) / FK;
   for (int pass = 0; pass < n_pass; ++pass) {
     const bool do_g = (pass == 0);
-    const int d0 = pass * RD;
-    float racc[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-    for (int n0 = 0; n0 < N; n0 += BK) {
-      load_h_tile(hi_s, Ha, N, L, n0, i * BL);
-      if (do_g && !diag) load_h_tile(hj_s, Ha, N, L, n0, j * BL);
-      if (owns_r) load_t_tile(t_s, Ta, N, D, n0, d0);
-      __syncthreads();
-      if (do_g) g_update(hi_s, hj, ty, tx, acc);
-      if (owns_r) r_update(hi_s, t_s, racc);
-      __syncthreads();
+    const int d0 = (pass % d_pass) * dw, q0 = (pass / d_pass) * r_rows;
+    // this thread's R item: row q of the block's list, column d
+    const int dq = threadIdx.x % dw, q = q0 + threadIdx.x / dw, d = d0 + dq;
+    const bool do_r = q0 < nr;   // the block has R rows in this pass
+    const bool own_r = q < nr && d < D;
+    const bool from_i = q < ni;
+    const int rc = from_i ? ri0 + q : rj0 + q - ni;    // its column in the staged tile
+    float racc = 0.0f;
+    auto load = [&](int s) {
+      F32Stage& sg = ring[s % FSTAGES];
+      copy_h_f32<kVec>(sg.hi, Ha, rows, L, s * FK, i * BL);
+      if (!diag) copy_h_f32<kVec>(sg.hj, Ha, rows, L, s * FK, j * BL);
+      if (do_r) copy_t_f32(sg.t, Ta, rows, D, s * FK, d0);
+    };
+    for (int s = 0; s < FSTAGES - 1; ++s) {
+      if (s < steps) load(s);
+      cp_async_commit();
     }
-    if (owns_r) store_r(R + static_cast<size_t>(a) * L * D, racc, L, D, i, d0, accumulate);
+    for (int s = 0; s < steps; ++s) {
+      cp_async_wait<FSTAGES - 2>();  // stage s has landed (this thread's copies)
+      __syncthreads();  // ... everyone's; and stage s - 1 is read by everyone
+      if (s + FSTAGES - 1 < steps) load(s + FSTAGES - 1);  // into stage s - 1's slot
+      cp_async_commit();
+      const F32Stage& sg = ring[s % FSTAGES];
+      if (do_g) g_update<FK>(sg.hi, diag ? sg.hi : sg.hj, ty, tx, acc);
+      if (own_r) {
+        const float(*h)[BL] = from_i ? sg.hi : sg.hj;
+#pragma unroll
+        for (int k = 0; k < FK; ++k) racc = fmaf(h[k][rc], sg.t[k][dq], racc);
+      }
+    }
+    __syncthreads();  // the ring is read before another pass refills it
+    if (own_r) {
+      const int l = (from_i ? i : j) * BL + rc;
+      if (l < L) {
+        float* at = R + (static_cast<size_t>(a) * L + l) * D + d;
+        *at = accumulate ? *at + racc : racc;
+      }
+    }
   }
-  store_g(G + static_cast<size_t>(a) * L * L, acc, L, i, j, ty, tx, accumulate);
+  float* Ga = G + static_cast<size_t>(a) * L * L;
+#pragma unroll
+  for (int p = 0; p < 8; ++p) {
+    const int r = tile_index(ty, p);
+#pragma unroll
+    for (int q = 0; q < 8; ++q) {
+      const int c = tile_index(tx, q);
+      const int gr = i * BL + r, gc = j * BL + c;
+      if (gr >= L || gc >= L) continue;
+      if (kDense)
+        Ga[static_cast<size_t>(gr) * L + gc] = acc[p][q];
+      else if (!diag || r >= c)  // a diagonal tile writes its lower half and mirrors it
+        store_g_pair(Ga, L, gr, gc, acc[p][q], accumulate);
+    }
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -411,7 +495,7 @@ __global__ void __launch_bounds__(NT, 2) hidden_kernel(
   for (int d0 = 0, buf = 0; d0 < Din; d0 += BK, buf ^= 1) {
     const bool more = d0 + BK < Din;
     if (more) fetch(d0 + BK);               // in flight during the products
-    g_update(xs[buf], ws[buf], ty, tx, acc);  // d_in in order, one fmaf per step
+    g_update<BK>(xs[buf], ws[buf], ty, tx, acc);  // d_in in order, one fmaf per step
     if (more) stash(buf ^ 1);               // the slot read one slice ago
     __syncthreads();
   }
@@ -428,57 +512,6 @@ __global__ void __launch_bounds__(NT, 2) hidden_kernel(
       if (l < ldh)
         store_hidden(Ha + static_cast<size_t>(r) * ldh + l,
                      l < L ? activate(acc[p][q] + bias[l], act) : 0.0f);
-    }
-  }
-}
-
-// ---------------------------------------------------------------------------
-// gram_dense: every (i, j) tile pair of one agent, no mirror
-// ---------------------------------------------------------------------------
-
-template <typename T>
-__global__ void __launch_bounds__(NT) gram_dense_kernel(const T* __restrict__ H,
-                                                        const T* __restrict__ Tg,
-                                                        float* __restrict__ G,
-                                                        float* __restrict__ R, int N,
-                                                        int L, int D) {
-  __shared__ __align__(16) float hi_s[BK][BL];
-  __shared__ __align__(16) float hj_s[BK][BL];
-  __shared__ __align__(16) float t_s[BK][RD];
-
-  const int i = blockIdx.y, j = blockIdx.x;
-  const bool owns_r = (j == 0);
-  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
-
-  float acc[8][8];
-#pragma unroll
-  for (int p = 0; p < 8; ++p)
-#pragma unroll
-    for (int q = 0; q < 8; ++q) acc[p][q] = 0.0f;
-
-  const int n_pass = owns_r ? (D + RD - 1) / RD : 1;
-  for (int pass = 0; pass < n_pass; ++pass) {
-    const bool do_g = (pass == 0);
-    const int d0 = pass * RD;
-    float racc[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-    for (int n0 = 0; n0 < N; n0 += BK) {
-      load_h_tile(hi_s, H, N, L, n0, i * BL);
-      if (do_g) load_h_tile(hj_s, H, N, L, n0, j * BL);
-      if (owns_r) load_t_tile(t_s, Tg, N, D, n0, d0);
-      __syncthreads();
-      if (do_g) g_update(hi_s, hj_s, ty, tx, acc);
-      if (owns_r) r_update(hi_s, t_s, racc);
-      __syncthreads();
-    }
-    if (owns_r) store_r(R, racc, L, D, i, d0);
-  }
-#pragma unroll
-  for (int p = 0; p < 8; ++p) {
-    const int gr = i * BL + tile_index(ty, p);
-#pragma unroll
-    for (int q = 0; q < 8; ++q) {
-      const int gc = j * BL + tile_index(tx, q);
-      if (gr < L && gc < L) G[static_cast<size_t>(gr) * L + gc] = acc[p][q];
     }
   }
 }
@@ -995,10 +1028,11 @@ __device__ __forceinline__ void wg_consume(const WgStage* ring, uint64_t* full, 
 // tiles (i, j0) and (i, j0 + 1) per block, bf16 on the tensor cores with fp32
 // accumulators.  kDense: tiles (blockIdx.y, 2 blockIdx.x + t) of one agent,
 // stored as computed; otherwise block blockIdx.x of pair_decode's triangle
-// of agent blockIdx.y, each tile stored with its mirror.  hmap is H (m, N, L)
-// as a 3-D tensor map of 64 x 64 boxes, 128-byte swizzle; tmap is T padded
-// with zero columns to a multiple of 8, (m, N, 8 ceil(D / 8)), in 64 x 8
-// boxes without swizzle.
+// of agent blockIdx.y, each tile stored with its mirror.  hmap is H, or its
+// copy padded with zero columns to Lp = 8 ceil(L / 8), (m, N, Lp), as a 3-D
+// tensor map of 64 x 64 boxes, 128-byte swizzle; tmap is T padded likewise
+// to a multiple of 8, (m, N, 8 ceil(D / 8)), in 64 x 8 boxes without
+// swizzle.
 template <bool kDense>
 __global__ void __launch_bounds__(WNT, 1) gram_wgmma_kernel(
     const __grid_constant__ CUtensorMap hmap, const __grid_constant__ CUtensorMap tmap,
@@ -1166,15 +1200,66 @@ TensorMapEncode tensor_map_encode() {
   return fn;
 }
 
-// Tp[r][c] = T[r][c] for c < D, 0 for D <= c < Dp: T's rows (m N of them)
-// as 16-byte strides that TMA can copy
-__global__ void pad_t_kernel(const __nv_bfloat16* __restrict__ T, __nv_bfloat16* __restrict__ Tp,
-                             size_t rows, int D, int Dp) {
-  const size_t e = static_cast<size_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (e >= rows * Dp) return;
-  const size_t r = e / Dp;
-  const int c = static_cast<int>(e % Dp);
-  Tp[e] = c < D ? T[r * D + c] : __float2bfloat16_rn(0.f);
+// cudaFuncAttributeMaxDynamicSharedMemorySize of kKernel, set once per
+// device and process (a per-call set cost every launch its host time)
+template <auto kKernel>
+cudaError_t allow_dynamic_smem(size_t bytes) {
+  static std::atomic<uint64_t> done{0};  // bit d: set on device d
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  const uint64_t bit = dev < 64 ? uint64_t{1} << dev : 0;
+  if (done.load(std::memory_order_relaxed) & bit) return cudaSuccess;
+  err = cudaFuncSetAttribute(kKernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(bytes));
+  if (err == cudaSuccess) done.fetch_or(bit, std::memory_order_relaxed);
+  return err;
+}
+
+// fp32 gram_tri (m agents) or gram_dense (m = 1) on the fp32 body
+template <bool kDense>
+int gram_f32(const float* H, const float* T, float* G, float* R, int m, int rows, int L, int D,
+             size_t t_stride, bool accumulate, cudaStream_t st) {
+  // 16-byte copies where every row of H starts on 16 bytes
+  const bool vec = L % 4 == 0 && aligned16(H);
+  const cudaError_t attr = vec ? allow_dynamic_smem<gram_f32_kernel<kDense, true>>(kF32Smem)
+                               : allow_dynamic_smem<gram_f32_kernel<kDense, false>>(kF32Smem);
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  const int nl = (L + BL - 1) / BL;
+  const dim3 grid = kDense ? dim3(nl, nl) : tri_grid(m, L);
+  const auto kernel = vec ? gram_f32_kernel<kDense, true> : gram_f32_kernel<kDense, false>;
+  kernel<<<grid, NT, kF32Smem, st>>>(H, T, G, R, rows, L, D, t_stride, accumulate);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// One array of `rows` rows of `w` bf16 values copied into rows of wp >= w
+// values, the columns w <= c < wp zero: the rows as 16-byte strides that TMA
+// can copy
+struct PadRows {
+  const __nv_bfloat16* src;
+  __nv_bfloat16* dst;
+  size_t rows;
+  int w, wp;
+};
+
+// blockIdx.y picks the array (H and T padded in one launch); each thread
+// writes one 16-byte group of 8 values of a padded row (a 32-bit division
+// per group: a 64-bit one per element made padding H at L 300 cost more
+// than its Gram grid on an H100)
+__global__ void pad_rows_kernel(PadRows a, PadRows b) {
+  const PadRows& p = blockIdx.y == 0 ? a : b;
+  const uint32_t groups = p.wp / 8;  // of a padded row
+  const size_t n = p.rows * groups;
+  const size_t stride = static_cast<size_t>(gridDim.x) * blockDim.x;
+  for (size_t e = static_cast<size_t>(blockIdx.x) * blockDim.x + threadIdx.x; e < n; e += stride) {
+    const size_t r = n <= UINT32_MAX ? static_cast<uint32_t>(e) / groups : e / groups;
+    const int c0 = static_cast<int>(e - r * groups) * 8;
+    const __nv_bfloat16* src = p.src + r * p.w;
+    alignas(16) __nv_bfloat16 v[8];
+#pragma unroll
+    for (int q = 0; q < 8; ++q) v[q] = c0 + q < p.w ? src[c0 + q] : __float2bfloat16_rn(0.f);
+    *reinterpret_cast<uint4*>(p.dst + r * p.wp + c0) = *reinterpret_cast<const uint4*>(v);
+  }
 }
 
 // A 3-D tensor map of a contiguous bf16 (m, N, width) array in boxes of
@@ -1196,34 +1281,38 @@ bool encode_map(CUtensorMap* map, const void* base, int m, int N, int width, int
              CUDA_SUCCESS;
 }
 
-// gram_tri (m agents) or gram_dense (m = 1) in bf16 on the wgmma body.  Tp
-// is where the kernel reads T (m, N, D) from, with zero columns up to
-// Dp = 8 ceil(D / 8): T itself where D == Dp, else a buffer of m N Dp values
-// that pad_t_kernel fills first.  It needs what TMA needs: L % 8 == 0
-// (16-byte row strides) and H and Tp on 16 bytes; otherwise it refuses with
+// gram_tri (m agents) or gram_dense (m = 1) in bf16 on the wgmma body.  Hp
+// and Tp are where the kernel reads H (m, N, L) and T (m, N, D) from, with
+// zero columns up to Lp = 8 ceil(L / 8) and Dp = 8 ceil(D / 8): H or T
+// itself where its rows already are so, else a buffer that pad_rows_kernel
+// fills first.  Both on 16 bytes, as TMA needs; otherwise it refuses with
 // cudaErrorInvalidValue before it launches anything.
 template <bool kDense>
-int gram_wgmma(const void* H, const void* T, void* Tp, void* G, void* R, int m, int N, int L,
-               int D, void* stream) {
+int gram_wgmma(const void* H, void* Hp, const void* T, void* Tp, void* G, void* R, int m, int N,
+               int L, int D, void* stream) {
   cudaGetLastError();
-  const int Dp = (D + 7) / 8 * 8;
+  const int Lp = (L + 7) / 8 * 8, Dp = (D + 7) / 8 * 8;
   CUtensorMap hmap, tmap;
-  if (L % 8 != 0 || !aligned16(H, Tp) || (Tp == T && D != Dp) ||
-      !encode_map(&hmap, H, m, N, L, WBOX, CU_TENSOR_MAP_SWIZZLE_128B) ||
+  if ((Hp == H && L != Lp) || (Tp == T && D != Dp) || !aligned16(Hp, Tp) ||
+      !encode_map(&hmap, Hp, m, N, Lp, WBOX, CU_TENSOR_MAP_SWIZZLE_128B) ||
       !encode_map(&tmap, Tp, m, N, Dp, 8, CU_TENSOR_MAP_SWIZZLE_NONE))
     return static_cast<int>(cudaErrorInvalidValue);
   const auto st = static_cast<cudaStream_t>(stream);
-  if (Tp != T) {
-    const size_t n = static_cast<size_t>(m) * N * Dp;
-    pad_t_kernel<<<static_cast<unsigned>((n + 255) / 256), 256, 0, st>>>(
-        static_cast<const __nv_bfloat16*>(T), static_cast<__nv_bfloat16*>(Tp),
-        static_cast<size_t>(m) * N, D, Dp);
+  const size_t rows = static_cast<size_t>(m) * N;
+  const auto bf = [](const void* p) { return static_cast<const __nv_bfloat16*>(p); };
+  PadRows jobs[2];
+  int n_jobs = 0;
+  if (Hp != H) jobs[n_jobs++] = {bf(H), static_cast<__nv_bfloat16*>(Hp), rows, L, Lp};
+  if (Tp != T) jobs[n_jobs++] = {bf(T), static_cast<__nv_bfloat16*>(Tp), rows, D, Dp};
+  if (n_jobs > 0) {
+    // a thread a 16-byte group of the larger array, at most 65535 blocks
+    const size_t groups = rows * (std::max(Hp != H ? Lp : 0, Tp != T ? Dp : 0) / 8);
+    const unsigned blocks = static_cast<unsigned>(std::min<size_t>((groups + 255) / 256, 65535));
+    pad_rows_kernel<<<dim3(blocks, n_jobs), 256, 0, st>>>(jobs[0], jobs[n_jobs - 1]);
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  const cudaError_t attr =
-      cudaFuncSetAttribute(gram_wgmma_kernel<kDense>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           static_cast<int>(kWgSmem));
+  const cudaError_t attr = allow_dynamic_smem<gram_wgmma_kernel<kDense>>(kWgSmem);
   if (attr != cudaSuccess) return static_cast<int>(attr);
   // blocks of two tiles: every row of tiles of the square, or the
   // triangle's rows (pair_decode), ceil(nl / 2) (floor(nl / 2) + 1) of them
@@ -1261,19 +1350,17 @@ int fused_chunk(const void* X, const void* W, const void* b, const void* Tg, voi
   const T* Tc = static_cast<const T*>(Tg) + static_cast<size_t>(n0) * D;
   const size_t t_stride = static_cast<size_t>(N) * D;
   if constexpr (kBf16) {
-    const cudaError_t attr = cudaFuncSetAttribute(
-        gram_mma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(kMmaSmem));
+    const cudaError_t attr = allow_dynamic_smem<gram_mma_kernel>(kMmaSmem);
     if (attr != cudaSuccess) return static_cast<int>(attr);
     gram_mma_kernel<<<tri_grid(m, L), NT, kMmaSmem, st>>>(static_cast<const T*>(Hws), Tc,
                                                    static_cast<float*>(G),
                                                    static_cast<float*>(R), rows, L, ldh, D,
                                                    t_stride, accumulate);
+    return static_cast<int>(cudaGetLastError());
   } else {
-    gram_tri_kernel<float><<<tri_grid(m, L), NT, 0, st>>>(
-        static_cast<const float*>(Hws), Tc, static_cast<float*>(G), static_cast<float*>(R),
-        rows, L, D, t_stride, accumulate);
+    return gram_f32<false>(static_cast<const float*>(Hws), Tc, static_cast<float*>(G),
+                           static_cast<float*>(R), m, rows, L, D, t_stride, accumulate, st);
   }
-  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -1283,21 +1370,17 @@ extern "C" {
 int gram_tri_f32(const void* H, const void* T, void* G, void* R, int m, int N, int L,
                  int D, void* stream) {
   cudaGetLastError();
-  gram_tri_kernel<float><<<tri_grid(m, L), NT, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(H), static_cast<const float*>(T), static_cast<float*>(G),
-      static_cast<float*>(R), N, L, D, static_cast<size_t>(N) * D, false);
-  return static_cast<int>(cudaGetLastError());
+  return gram_f32<false>(static_cast<const float*>(H), static_cast<const float*>(T),
+                         static_cast<float*>(G), static_cast<float*>(R), m, N, L, D,
+                         static_cast<size_t>(N) * D, false, static_cast<cudaStream_t>(stream));
 }
 
-int gram_tri_bf16(const void* H, const void* T, void* G, void* R, int m, int N, int L,
-                  int D, void* stream) {
+int gram_dense_f32(const void* H, const void* T, void* G, void* R, int N, int L, int D,
+                   void* stream) {
   cudaGetLastError();
-  gram_tri_kernel<__nv_bfloat16>
-      <<<tri_grid(m, L), NT, 0, static_cast<cudaStream_t>(stream)>>>(
-          static_cast<const __nv_bfloat16*>(H), static_cast<const __nv_bfloat16*>(T),
-          static_cast<float*>(G), static_cast<float*>(R), N, L, D,
-          static_cast<size_t>(N) * D, false);
-  return static_cast<int>(cudaGetLastError());
+  return gram_f32<true>(static_cast<const float*>(H), static_cast<const float*>(T),
+                        static_cast<float*>(G), static_cast<float*>(R), 1, N, L, D,
+                        static_cast<size_t>(N) * D, false, static_cast<cudaStream_t>(stream));
 }
 
 int gram_fused_chunk_f32(const void* X, const void* W, const void* b, const void* T,
@@ -1324,39 +1407,21 @@ int gram_tri_q(const void* Hq, const void* S, const void* T, void* G, void* R, i
   return static_cast<int>(cudaGetLastError());
 }
 
-// Tp: T itself where D % 8 == 0, else a buffer of m N 8 ceil(D / 8) values
-int gram_tri_bf16_wgmma(const void* H, const void* T, void* Tp, void* G, void* R, int m,
-                        int N, int L, int D, void* stream) {
-  return gram_wgmma<false>(H, T, Tp, G, R, m, N, L, D, stream);
+// Hp, Tp: H and T themselves where their rows are a multiple of 8 values on
+// 16 bytes, else buffers of m N 8 ceil(L / 8) and m N 8 ceil(D / 8) values
+int gram_tri_bf16_wgmma(const void* H, void* Hp, const void* T, void* Tp, void* G, void* R,
+                        int m, int N, int L, int D, void* stream) {
+  return gram_wgmma<false>(H, Hp, T, Tp, G, R, m, N, L, D, stream);
 }
 
-int gram_dense_f32(const void* H, const void* T, void* G, void* R, int N, int L, int D,
-                   void* stream) {
-  cudaGetLastError();
-  const int nl = (L + BL - 1) / BL;
-  gram_dense_kernel<float><<<dim3(nl, nl), NT, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(H), static_cast<const float*>(T), static_cast<float*>(G),
-      static_cast<float*>(R), N, L, D);
-  return static_cast<int>(cudaGetLastError());
+int gram_dense_bf16_wgmma(const void* H, void* Hp, const void* T, void* Tp, void* G, void* R,
+                          int N, int L, int D, void* stream) {
+  return gram_wgmma<true>(H, Hp, T, Tp, G, R, 1, N, L, D, stream);
 }
 
-int gram_dense_bf16(const void* H, const void* T, void* G, void* R, int N, int L, int D,
-                    void* stream) {
-  cudaGetLastError();
-  const int nl = (L + BL - 1) / BL;
-  gram_dense_kernel<__nv_bfloat16>
-      <<<dim3(nl, nl), NT, 0, static_cast<cudaStream_t>(stream)>>>(
-          static_cast<const __nv_bfloat16*>(H), static_cast<const __nv_bfloat16*>(T),
-          static_cast<float*>(G), static_cast<float*>(R), N, L, D);
-  return static_cast<int>(cudaGetLastError());
-}
-
-// dynamic shared memory of a gram_wgmma_kernel block, in bytes
+// dynamic shared memory of a gram_wgmma_kernel and a gram_f32_kernel block,
+// in bytes
 int gram_wgmma_smem_bytes() { return static_cast<int>(kWgSmem); }
-
-int gram_dense_bf16_wgmma(const void* H, const void* T, void* Tp, void* G, void* R, int N,
-                          int L, int D, void* stream) {
-  return gram_wgmma<true>(H, T, Tp, G, R, 1, N, L, D, stream);
-}
+int gram_f32_smem_bytes() { return static_cast<int>(kF32Smem); }
 
 }  // extern "C"

@@ -17,10 +17,10 @@ sample rows of all m agents at a time, into a workspace that
 each chunk's statistics into G and R; ``LAST_FUSED`` records what its last
 call on the card launched.
 
-bf16 ``gram_tri`` and ``gram_dense`` run one of two bodies, chosen by shape
-(``gram_body``): the tensor-core body (TMA + wgmma) where its copies can
-read H, else the FMA body that fp32 runs; ``LAST_GRAM`` records which body
-the last call on the card ran.
+``gram_tri`` and ``gram_dense`` run one body per dtype (``gram_body``):
+fp32 the FMA body on the CUDA cores, bf16 the tensor-core body (TMA +
+wgmma), which reads H and T from ``h_buffer`` and ``t_buffer``;
+``LAST_GRAM`` records which body the last call on the card ran.
 """
 
 from __future__ import annotations
@@ -32,7 +32,7 @@ from pathlib import Path
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels._common import check, on_cpu, raise_on
+from repro_torch.kernels._common import check, on_cpu, raise_on, raw_stream
 from repro_torch.kernels.gram.ref import (
     MAX_INT8_BLOCK_N,
     gram_fused_ref,
@@ -69,34 +69,31 @@ def library() -> ctypes.CDLL:
     """The built kernel library with its C signatures declared (built and
     loaded once per process)."""
     lib = _build.load(SOURCE)
-    for name in ("gram_tri_f32", "gram_tri_bf16"):
-        fn = getattr(lib, name)
-        fn.argtypes = [_P, _P, _P, _P, _I, _I, _I, _I, _P]
+    lib.gram_tri_f32.argtypes = [_P] * 4 + [_I] * 4 + [_P]
+    lib.gram_dense_f32.argtypes = [_P] * 4 + [_I] * 3 + [_P]
+    # the tensor-core entries also take the buffers H and T are read from
+    # (h_buffer, t_buffer)
+    lib.gram_tri_bf16_wgmma.argtypes = [_P] * 6 + [_I] * 4 + [_P]
+    lib.gram_dense_bf16_wgmma.argtypes = [_P] * 6 + [_I] * 3 + [_P]
+    for fn in (lib.gram_tri_f32, lib.gram_dense_f32, lib.gram_tri_bf16_wgmma,
+               lib.gram_dense_bf16_wgmma):
         fn.restype = _I
-    # the tensor-core entries also take the buffer T is read from (t_buffer)
-    lib.gram_tri_bf16_wgmma.argtypes = [_P] * 5 + [_I] * 4 + [_P]
-    lib.gram_tri_bf16_wgmma.restype = _I
-    lib.gram_dense_bf16_wgmma.argtypes = [_P] * 5 + [_I] * 3 + [_P]
-    lib.gram_dense_bf16_wgmma.restype = _I
     for name in ("gram_fused_chunk_f32", "gram_fused_chunk_bf16"):
         fn = getattr(lib, name)
         fn.argtypes = [_P] * 7 + [_I] * 9 + [_P]
         fn.restype = _I
-    lib.gram_wgmma_smem_bytes.argtypes = []
-    lib.gram_wgmma_smem_bytes.restype = _I
+    for fn in (lib.gram_wgmma_smem_bytes, lib.gram_f32_smem_bytes):
+        fn.argtypes = []
+        fn.restype = _I
     lib.gram_tri_q.argtypes = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]
     lib.gram_tri_q.restype = _I
-    for name in ("gram_dense_f32", "gram_dense_bf16"):
-        fn = getattr(lib, name)
-        fn.argtypes = [_P, _P, _P, _P, _I, _I, _I, _P]
-        fn.restype = _I
     return lib
 
 
 def _check_sizes(m, *dims):
     """The grid's agent axis is gridDim.y (at most 65535); every other size
     crosses the C interface as a 32-bit int."""
-    if not (1 <= m <= 65535 and all(1 <= d < 2**31 for d in dims)):
+    if not (1 <= m <= 65535 and 1 <= min(dims) and max(dims) < 2**31):
         raise ValueError(
             f"Gram kernels need 1 <= m <= 65535 and every size in "
             f"[1, 2^31), got m={m}, sizes {dims}"
@@ -120,33 +117,59 @@ def fused_chunks(m: int, N: int, L: int, precision: str):
     return [(n0, min(rows, N - n0)) for n0 in range(0, N, rows)]
 
 
-def gram_body(dtype: torch.dtype, L: int, h_ptr: int) -> str:
-    """The body a bf16 or fp32 Gram launch runs: ``"wgmma"`` (TMA copies of
-    H into swizzled shared memory, wgmma on the tensor cores) for bf16 H
-    whose rows are a multiple of 8 values (16-byte strides) and whose base
-    ``h_ptr`` lies on 16 bytes, which is all TMA needs of H; ``"fma"`` (fp32
-    FMAs on the CUDA cores, bf16 widened) otherwise.  T does not enter: the
-    tensor-core body reads it from ``t_buffer``."""
-    if dtype == torch.bfloat16 and L % 8 == 0 and h_ptr % 16 == 0:
-        return "wgmma"
-    return "fma"
+def gram_body(dtype: torch.dtype) -> str:
+    """The body a Gram launch of ``dtype`` runs: ``"wgmma"`` for bf16 (TMA
+    copies of H into swizzled shared memory, wgmma on the tensor cores),
+    ``"fma"`` for fp32 (IEEE fp32 FMAs on the CUDA cores, no TF32)."""
+    return "wgmma" if dtype == torch.bfloat16 else "fma"
 
 
-def t_buffer(T: torch.Tensor) -> torch.Tensor:
-    """Where the tensor-core body reads T (..., N, D) from: rows of
-    8 ceil(D / 8) values (16-byte strides) on 16 bytes.  T itself where it
-    already is so; else an empty buffer of that shape, which the launch
-    fills with T and zero columns before its Gram grid reads it."""
-    Dp = -(-T.shape[-1] // 8) * 8
-    if Dp == T.shape[-1] and T.data_ptr() % 16 == 0:
-        return T
-    return torch.empty((*T.shape[:-1], Dp), dtype=T.dtype, device=T.device)
+def h_buffer(H: torch.Tensor) -> torch.Tensor:
+    """Where the tensor-core body reads H (..., N, L) from: rows of
+    Lp = 8 ceil(L / 8) values (16-byte strides) on 16 bytes.  H itself where
+    it already is so; else an empty buffer of that shape (torch.empty: on
+    16 bytes), which the launch fills with H and zero columns before its
+    Gram grid reads it (zero columns add exact zeros, and the kernel stores
+    only below L).  T (..., N, D) is read the same way (``t_buffer``)."""
+    width = H.shape[-1]
+    padded = -(-width // 8) * 8
+    if padded == width and H.data_ptr() % 16 == 0:
+        return H
+    return torch.empty((*H.shape[:-1], padded), dtype=H.dtype, device=H.device)
 
 
-def _entry(lib, kernel_name: str, dtype: torch.dtype, body: str):
-    suffix = ("f32" if dtype == torch.float32
-              else "bf16_wgmma" if body == "wgmma" else "bf16")
-    return getattr(lib, f"{kernel_name}_{suffix}")
+t_buffer = h_buffer
+
+
+_GRAM_DTYPES = (torch.float32, torch.bfloat16)
+_ENTRIES = {("gram_tri", torch.float32): "gram_tri_f32",
+            ("gram_tri", torch.bfloat16): "gram_tri_bf16_wgmma",
+            ("gram_dense", torch.float32): "gram_dense_f32",
+            ("gram_dense", torch.bfloat16): "gram_dense_bf16_wgmma"}
+
+
+def _launch_gram(kind: str, H: torch.Tensor, T: torch.Tensor, m: int, N: int,
+                 L: int, D: int):
+    """G and R of ``kind`` on checked H and T; bf16 launches read H and T
+    from their 16-byte buffers (held here until the launch is on the
+    stream, which orders any reuse after it)."""
+    lead = (m,) if kind == "gram_tri" else ()
+    G = torch.empty((*lead, L, L), dtype=torch.float32, device=H.device)
+    R = torch.empty((*lead, L, D), dtype=torch.float32, device=H.device)
+    sizes = (m, N, L, D) if kind == "gram_tri" else (N, L, D)
+    stream = raw_stream(H)
+    fn = getattr(library(), _ENTRIES[kind, H.dtype])
+    if H.dtype == torch.float32:
+        code = fn(H.data_ptr(), T.data_ptr(), G.data_ptr(), R.data_ptr(),
+                  *sizes, stream)
+    else:
+        Hp, Tp = h_buffer(H), t_buffer(T)
+        code = fn(H.data_ptr(), Hp.data_ptr(), T.data_ptr(), Tp.data_ptr(),
+                  G.data_ptr(), R.data_ptr(), *sizes, stream)
+    raise_on(code, kind)
+    LAUNCHES[kind] += 1
+    LAST_GRAM.update(kernel=kind, body=gram_body(H.dtype))
+    return G, R
 
 
 def gram_tri(H: torch.Tensor, T: torch.Tensor):
@@ -156,28 +179,14 @@ def gram_tri(H: torch.Tensor, T: torch.Tensor):
     Returns (G (m, L, L) fp32, R (m, L, D) fp32)."""
     if on_cpu("Gram", H, T):
         return gram_ref(H, T)
-    dtypes = (torch.float32, torch.bfloat16)
-    check("H", H, 3, dtypes)
+    check("H", H, 3, _GRAM_DTYPES)
     check("T", T, 3, (H.dtype,))
     m, N, L = H.shape
     D = T.shape[-1]
     if T.shape[:2] != (m, N):
         raise ValueError(f"T shape {tuple(T.shape)} does not match H {tuple(H.shape)}")
     _check_sizes(m, N, L, D)
-    body = gram_body(H.dtype, L, H.data_ptr())
-    fn = _entry(library(), "gram_tri", H.dtype, body)
-    # the tensor-core entry also takes the buffer it reads T from, held
-    # here until the launch is on the stream (which orders any reuse after it)
-    Tp = t_buffer(T) if body == "wgmma" else None
-    t_args = (T.data_ptr(),) if Tp is None else (T.data_ptr(), Tp.data_ptr())
-    G = torch.empty((m, L, L), dtype=torch.float32, device=H.device)
-    R = torch.empty((m, L, D), dtype=torch.float32, device=H.device)
-    stream = torch.cuda.current_stream(H.device).cuda_stream
-    raise_on(fn(H.data_ptr(), *t_args, G.data_ptr(), R.data_ptr(),
-                m, N, L, D, stream), "gram_tri")
-    LAUNCHES["gram_tri"] += 1
-    LAST_GRAM.update(kernel="gram_tri", body=body)
-    return G, R
+    return _launch_gram("gram_tri", H, T, m, N, L, D)
 
 
 def gram_fused(X: torch.Tensor, W: torch.Tensor, b: torch.Tensor,
@@ -286,22 +295,11 @@ def gram_dense(H: torch.Tensor, T: torch.Tensor):
     (G (L, L) fp32, R (L, D) fp32)."""
     if on_cpu("Gram", H, T):
         return gram_ref(H, T)
-    check("H", H, 2, (torch.float32, torch.bfloat16))
+    check("H", H, 2, _GRAM_DTYPES)
     check("T", T, 2, (H.dtype,))
     N, L = H.shape
     D = T.shape[-1]
     if T.shape[0] != N:
         raise ValueError(f"T shape {tuple(T.shape)} does not match H {tuple(H.shape)}")
     _check_sizes(1, N, L, D)
-    body = gram_body(H.dtype, L, H.data_ptr())
-    fn = _entry(library(), "gram_dense", H.dtype, body)
-    Tp = t_buffer(T) if body == "wgmma" else None
-    t_args = (T.data_ptr(),) if Tp is None else (T.data_ptr(), Tp.data_ptr())
-    G = torch.empty((L, L), dtype=torch.float32, device=H.device)
-    R = torch.empty((L, D), dtype=torch.float32, device=H.device)
-    stream = torch.cuda.current_stream(H.device).cuda_stream
-    raise_on(fn(H.data_ptr(), *t_args, G.data_ptr(), R.data_ptr(),
-                N, L, D, stream), "gram_dense")
-    LAUNCHES["gram_dense"] += 1
-    LAST_GRAM.update(kernel="gram_dense", body=body)
-    return G, R
+    return _launch_gram("gram_dense", H, T, 1, N, L, D)

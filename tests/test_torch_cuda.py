@@ -271,6 +271,52 @@ def test_gram_bf16_wgmma_is_exact_on_integers(gen, kind, N):
     assert torch.equal(G, Gr) and torch.equal(R, Rr)
 
 
+@pytest.mark.parametrize("N", [15, 16, 17, 63, 1000])
+@pytest.mark.parametrize("L", [4, 130, 264, 300])
+@pytest.mark.parametrize("kind", ["gram_tri", "gram_dense"])
+def test_gram_fp32_is_exact_on_integers(gen, kind, L, N):
+    """The fp32 body on small-integer inputs: every product and partial sum
+    is exact in fp32, so G and R must equal the plain version exactly, at
+    the edges of its 16-sample stages and with 16-byte (L % 4 == 0) and
+    4-byte copies; one stage lost or read before it lands shows here."""
+    m, D = 3, 9
+    shape = (N, L) if kind == "gram_dense" else (m, N, L)
+    H = torch.randint(-2, 3, shape, device="cuda", generator=gen).float()
+    T = torch.randint(-2, 3, (*shape[:-1], D), device="cuda", generator=gen).float()
+    G, R = getattr(kernel, kind)(H, T)
+    torch.cuda.synchronize()
+    assert kernel.LAST_GRAM == {"kernel": kind, "body": "fma"}
+    Gr, Rr = ref.gram_ref(H, T)
+    assert torch.equal(G, Gr) and torch.equal(R, Rr)
+
+
+@pytest.mark.parametrize("D", [1, 3, 16, 17, 33])   # R's 16-column passes
+@pytest.mark.parametrize("kind", ["gram_tri", "gram_dense"])
+def test_gram_fp32_r_over_several_passes(gen, kind, D):
+    m, N, L = 2, 200, 264
+    shape = (N, L) if kind == "gram_dense" else (m, N, L)
+    H = torch.randn(*shape, device="cuda", generator=gen) / L**0.5
+    T = torch.randn(*shape[:-1], D, device="cuda", generator=gen)
+    G, R = getattr(kernel, kind)(H, T)
+    torch.cuda.synchronize()
+    Gr, Rr = ref.gram_ref(H, T)
+    assert _rel(G, Gr) <= TOL["fp32"] and _rel(R, Rr) <= TOL["fp32"]
+
+
+@pytest.mark.parametrize("kind", ["gram_tri", "gram_dense"])
+def test_gram_fp32_takes_views_off_16_bytes(gen, kind):
+    """fp32 H off 16 bytes with L % 4 == 0 takes the 4-byte copies and
+    agrees."""
+    m, N, L, D = 2, 100, 136, 3
+    shape = (N, L) if kind == "gram_dense" else (m, N, L)
+    H = _off16(shape, torch.float32, gen)
+    T = torch.randn(*shape[:-1], D, device="cuda", generator=gen)
+    G, R = getattr(kernel, kind)(H, T)
+    torch.cuda.synchronize()
+    Gr, Rr = ref.gram_ref(H, T)
+    assert _rel(G, Gr) <= TOL["fp32"] and _rel(R, Rr) <= TOL["fp32"]
+
+
 @pytest.mark.parametrize("D", [1, 8, 9, 16, 17, 33])   # R's 8-column groups, passes
 @pytest.mark.parametrize("kind", ["gram_tri", "gram_dense"])
 def test_gram_bf16_wgmma_r_over_several_passes(gen, kind, D):
@@ -284,18 +330,46 @@ def test_gram_bf16_wgmma_r_over_several_passes(gen, kind, D):
 
 @pytest.mark.parametrize("kind", ["gram_tri", "gram_dense"])
 def test_gram_bf16_takes_views_off_16_bytes(gen, kind):
-    """H off 16 bytes with L % 8 == 0: TMA cannot read it, so the body
-    choice names the FMA body, which runs and agrees."""
+    """H off 16 bytes with L % 8 == 0: TMA cannot read it in place, so the
+    launch fills a padded copy (``h_buffer``) and the tensor-core body reads
+    that, and agrees."""
     m, N, L, D = 2, 100, 136, 3
     shape = (N, L) if kind == "gram_dense" else (m, N, L)
     H = _off16(shape, torch.bfloat16, gen)
     T = torch.randn(*shape[:-1], D, device="cuda", generator=gen).bfloat16()
-    assert kernel.gram_body(H.dtype, L, H.data_ptr()) == "fma"
+    assert kernel.gram_body(H.dtype) == "wgmma"
+    assert kernel.h_buffer(H) is not H
     G, R = getattr(kernel, kind)(H, T)
     torch.cuda.synchronize()
-    assert kernel.LAST_GRAM == {"kernel": kind, "body": "fma"}
+    assert kernel.LAST_GRAM == {"kernel": kind, "body": "wgmma"}
     Gr, Rr = ref.gram_ref(H, T)
     assert _rel(G, Gr) <= TOL["bf16"] and _rel(R, Rr) <= TOL["bf16"]
+
+
+@pytest.mark.parametrize("N", [1, 65, 1000])
+@pytest.mark.parametrize("L", [4, 257, 300])
+@pytest.mark.parametrize("kind", ["gram_tri", "gram_dense"])
+def test_gram_bf16_padded_route(gen, kind, L, N):
+    """L % 8 != 0: the launch pads H (and T) with zero columns and the
+    tensor-core body runs; within TOL of the plain version on Gaussian
+    inputs, G exactly symmetric (triangle), and exactly equal on
+    small-integer inputs."""
+    m, D = 3, 5
+    H, T, fn = _gram_bf16(kind, m, N, L, D, gen)
+    assert kernel.h_buffer(H) is not H
+    G, R = fn(H, T)
+    torch.cuda.synchronize()
+    assert kernel.LAST_GRAM == {"kernel": kind, "body": "wgmma"}
+    Gr, Rr = ref.gram_ref(H, T)
+    if kind == "gram_tri":
+        assert torch.equal(G, G.mT)
+    assert _rel(G, Gr) <= TOL["bf16"] and _rel(R, Rr) <= TOL["bf16"]
+    shape = H.shape
+    Hi = torch.randint(-2, 3, shape, device="cuda", generator=gen).bfloat16()
+    Ti = torch.randint(-2, 3, (*shape[:-1], D), device="cuda", generator=gen).bfloat16()
+    G, R = fn(Hi, Ti)
+    Gr, Rr = ref.gram_ref(Hi, Ti)
+    assert torch.equal(G, Gr) and torch.equal(R, Rr)
 
 
 @pytest.mark.parametrize("kind", ["gram_tri", "gram_dense"])
@@ -314,26 +388,27 @@ def test_gram_bf16_wgmma_reads_t_off_16_bytes_from_a_copy(gen, kind):
 
 
 def test_gram_wgmma_entries_refuse_what_tma_cannot_read(gen):
-    """The C entries refuse L % 8 != 0, an H off 16 bytes, and T read in
-    place where its rows are not a multiple of 8 values, before they launch
-    anything."""
+    """The C entries refuse H read in place where L % 8 != 0, an H off 16
+    bytes read in place, and T read in place where its rows are not a
+    multiple of 8 values, before they launch anything."""
     lib = kernel.library()
     stream = torch.cuda.current_stream().cuda_stream
     G = torch.empty(2, 16, 16, device="cuda")
     R = torch.empty(2, 16, 3, device="cuda")
     T = torch.zeros(2, 8, 3, dtype=torch.bfloat16, device="cuda")
     Tp = kernel.t_buffer(T)
-    cases = [(torch.zeros(2, 8, 12, dtype=torch.bfloat16, device="cuda"), Tp),
-             (_off16((2, 8, 16), torch.bfloat16, gen), Tp),
-             (torch.zeros(2, 8, 16, dtype=torch.bfloat16, device="cuda"), T)]
-    for H, buf in cases:
+    unpadded = torch.zeros(2, 8, 12, dtype=torch.bfloat16, device="cuda")
+    off16 = _off16((2, 8, 16), torch.bfloat16, gen)
+    aligned = torch.zeros(2, 8, 16, dtype=torch.bfloat16, device="cuda")
+    cases = [(unpadded, unpadded, Tp), (off16, off16, Tp), (aligned, aligned, T)]
+    for H, Hp, buf in cases:
         m, N, L = H.shape
-        assert lib.gram_tri_bf16_wgmma(H.data_ptr(), T.data_ptr(), buf.data_ptr(),
-                                       G.data_ptr(), R.data_ptr(), m, N, L, 3,
-                                       stream) != 0
-        assert lib.gram_dense_bf16_wgmma(H.data_ptr(), T.data_ptr(), buf.data_ptr(),
-                                         G.data_ptr(), R.data_ptr(), N, L, 3,
-                                         stream) != 0
+        assert lib.gram_tri_bf16_wgmma(H.data_ptr(), Hp.data_ptr(), T.data_ptr(),
+                                       buf.data_ptr(), G.data_ptr(), R.data_ptr(),
+                                       m, N, L, 3, stream) != 0
+        assert lib.gram_dense_bf16_wgmma(H.data_ptr(), Hp.data_ptr(), T.data_ptr(),
+                                         buf.data_ptr(), G.data_ptr(), R.data_ptr(),
+                                         N, L, 3, stream) != 0
     torch.cuda.synchronize()
 
 

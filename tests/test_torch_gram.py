@@ -441,19 +441,25 @@ def _off16(shape):
 
 @pytest.mark.parametrize("L", [8, 64, 120, 136, 256, 296, 2048])
 def test_gram_body_takes_the_tensor_cores_for_bf16_rows_tma_can_read(L):
-    """bf16 H with L % 8 == 0 (16-byte row strides) on 16 bytes: TMA + wgmma."""
+    """bf16 H with L % 8 == 0 (16-byte row strides) on 16 bytes: TMA + wgmma,
+    reading H in place."""
     H = _bf16((2, 3, L))
     assert H.data_ptr() % 16 == 0
-    assert tkernel.gram_body(H.dtype, L, H.data_ptr()) == "wgmma"
+    assert tkernel.gram_body(H.dtype) == "wgmma"
+    assert tkernel.h_buffer(H) is H
 
 
 @pytest.mark.parametrize("case", ["fp32", "L300", "L4", "offset_view"])
 def test_gram_body_takes_the_fma_body_elsewhere(case):
-    """fp32, bf16 rows that are not a multiple of 8 values, and a bf16 view
-    off 16 bytes take the FMA body."""
+    """The FMA body is fp32's alone: bf16 rows that are not a multiple of 8
+    values, and a bf16 view off 16 bytes, take the tensor cores too, read
+    from the padded copy ``h_buffer`` makes."""
     H = {"fp32": torch.zeros(2, 3, 2048), "L300": _bf16((2, 3, 300)),
          "L4": _bf16((2, 3, 4)), "offset_view": _off16((2, 3, 2048))}[case]
-    assert tkernel.gram_body(H.dtype, H.shape[-1], H.data_ptr()) == "fma"
+    want = "fma" if case == "fp32" else "wgmma"
+    assert tkernel.gram_body(H.dtype) == want
+    if case != "fp32":
+        assert tkernel.h_buffer(H) is not H
 
 
 @pytest.mark.parametrize("shape", [(8, 2048, 2048, 3), (8, 8192, 2048, 8),
@@ -466,7 +472,8 @@ def test_gram_body_of_the_main_and_full_shapes(shape):
     m, _, L, _ = shape
     H, _ = tops._cast(torch.zeros(m, 2, L), torch.zeros(m, 2, 3), "bf16")
     H = H.contiguous()
-    assert tkernel.gram_body(H.dtype, L, H.data_ptr()) == "wgmma"
+    assert tkernel.gram_body(H.dtype) == "wgmma"
+    assert tkernel.h_buffer(H) is H
 
 
 def test_cpu_gram_calls_record_no_body():
@@ -495,3 +502,37 @@ def test_t_buffer_of_a_view_off_16_bytes_is_new():
     T = _off16((2, 5, 8))
     Tp = tkernel.t_buffer(T)
     assert Tp is not T and Tp.shape == T.shape and Tp.data_ptr() % 16 == 0
+
+
+@pytest.mark.parametrize("L", [1, 4, 8, 257, 296, 300, 2048])
+def test_h_buffer_has_rows_of_16_bytes(L):
+    """Where the tensor-core body reads H from: rows of 8 ceil(L / 8) values,
+    contiguous, on 16 bytes; H itself where it already is so, else a new
+    buffer (which the launch fills)."""
+    H = torch.from_numpy(_draw(L, (2, 5, L))[0]).bfloat16()
+    Hp = tkernel.h_buffer(H)
+    assert Hp.shape == (2, 5, -(-L // 8) * 8) and Hp.is_contiguous()
+    assert Hp.data_ptr() % 16 == 0 and Hp.dtype == H.dtype
+    assert (Hp is H) == (L % 8 == 0)
+
+
+def test_h_buffer_of_a_view_off_16_bytes_is_new():
+    H = _off16((2, 5, 16))
+    Hp = tkernel.h_buffer(H)
+    assert Hp is not H and Hp.shape == H.shape and Hp.data_ptr() % 16 == 0
+
+
+@pytest.mark.parametrize("L", [4, 257, 300])
+def test_zero_columns_of_the_padded_h_add_exact_zeros(L):
+    """What the padded route computes: G and R of H with zero columns up to
+    8 ceil(L / 8), cut back to L, equal G and R of H itself, and the padding
+    adds nothing but zeros (small-integer inputs: every sum exact)."""
+    rng = np.random.default_rng(L)
+    H = torch.from_numpy(rng.integers(-2, 3, (2, 9, L)).astype(np.float32)).bfloat16()
+    T = torch.from_numpy(rng.integers(-2, 3, (2, 9, 3)).astype(np.float32)).bfloat16()
+    Hp = torch.zeros((2, 9, -(-L // 8) * 8), dtype=H.dtype)
+    Hp[..., :L] = H
+    G, R = tref.gram_ref(H, T)
+    Gp, Rp = tref.gram_ref(Hp, T)
+    assert torch.equal(Gp[:, :L, :L], G) and torch.equal(Rp[:, :L], R)
+    assert not Gp[:, L:].any() and not Rp[:, L:].any()
