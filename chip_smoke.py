@@ -30,8 +30,9 @@ Phases (any failure raises and the script exits non-zero):
      shape and a ragged one with h0 != 0; ``mlstm`` at phase 8's call in
      bf16 and fp32, a ragged S, a long memory, input gates near -80 and
      -100 and a shape the step-by-step oracle can run, all held at fp32
-     level (``MLSTM_NORM_TOL``); times of the kernel, the plain version and
-     one library call;
+     level (``MLSTM_NORM_TOL``), each case recording the body it ran (the
+     tensor cores in bf16, the FMA body in fp32); times of the kernel, the
+     plain version and one library call;
   4. main path at full width: 8 agents, 8192 samples of 256 features each,
      an L=2048 hidden layer; the fused stats stream (``gram_fused``), the
      materialized stream (``gram_tri``), DMTL-ELM by consensus ADMM on a
@@ -62,9 +63,9 @@ Phases (any failure raises and the script exits non-zero):
   9. the ``gram_tri`` and ``gram_dense`` cases of phase 3 at the main
      path's and the full shape, and the bf16 ragged ones, split by
      ``torch.profiler`` into device time per kernel, theirs and the
-     library call's: last, because a
-     profiler session slows the host side of every later launch in the
-     process.
+     library call's, and ``mlstm`` at phase 8's call in bf16 and fp32 into
+     its four grids: last, because a profiler session slows the host side
+     of every later launch in the process.
 
 The last three lines of standard output are the ``{"kernels": ...}`` JSON
 line, the card's name and power limit from nvidia-smi, and
@@ -354,6 +355,7 @@ def mlstm_case(torch, mlstm_kernel, refs, shape, precision, gen, label,
 
     h = run()
     torch.cuda.synchronize()
+    ran = dict(mlstm_kernel.LAST_MLSTM)
     hp = plain()
     check(bool(torch.isfinite(h).all()), f"mlstm {label}: non-finite")
     if gates == "neg100":
@@ -370,6 +372,7 @@ def mlstm_case(torch, mlstm_kernel, refs, shape, precision, gen, label,
     nbytes, bound_ms, bound_by = mlstm_cost(B, H, S, D, precision)
     case = {"case": label, "dtype": precision, "gates": gates,
             "shape": {"B": B, "H": H, "S": S, "D": D, "chunk": c},
+            "body": ran["body"], "terms": ran["terms"],
             "max_abs_err": abs_e, "max_plain": peak, "rel_err": rel_e,
             "tol": TOL["fp32"], "norm_rel_err": norm_e,
             "norm_tol": MLSTM_NORM_TOL}
@@ -634,6 +637,29 @@ def gram_device_splits(torch, kernel, cases, gen) -> None:
                     torch, lambda: (mm(H.mT, H), mm(H.mT, T))))
             del H, T
             torch.cuda.empty_cache()
+
+
+def mlstm_device_splits(torch, mlstm_kernel, cases, gen) -> None:
+    """Phase 9: ``mlstm`` at phase 3's main-path cases (phase 8's call, bf16
+    and fp32) gets ``device_ms``, the device time per call of each of its
+    grids (gates, states, scores, outputs: the tensor-core grids in bf16,
+    the FMA grids in fp32), from ``torch.profiler``."""
+    for case in cases["mlstm"]:
+        if case["case"] != "main_path":
+            continue
+        B, H, S, D, c = (case["shape"][k] for k in ("B", "H", "S", "D",
+                                                    "chunk"))
+        dtype = torch.bfloat16 if case["dtype"] == "bf16" else torch.float32
+        q, k, v = (torch.randn(B, H, S, D, device="cuda",
+                               generator=gen).to(dtype) for _ in range(3))
+        log_f = torch.nn.functional.logsigmoid(
+            torch.randn(B, H, S, device="cuda", generator=gen) + 2.0)
+        i_gate = torch.randn(B, H, S, device="cuda", generator=gen)
+        case["device_ms"] = device_split(
+            torch, lambda: mlstm_kernel.mlstm(q, k, v, log_f, i_gate, c),
+            calls=3)
+        del q, k, v
+        torch.cuda.empty_cache()
 
 
 KERNEL_KINDS = ("swa", "rglru", "mlstm")   # each block of the kind launches it
@@ -964,10 +990,12 @@ def main() -> int:
              False),
             ("oracle", (1, 4, 1024, 1024, 256), "fp32", "std", True))]
     # every Gram case ran its dtype's body: the FMA body in fp32, the
-    # tensor cores in bf16 (L = 300 from the padded copy of H)
-    for name in ("gram_tri", "gram_dense"):
+    # tensor cores in bf16 (L = 300 from the padded copy of H); so did
+    # every mlstm case (mma.sync with split operands in bf16)
+    for name, tc in (("gram_tri", "wgmma"), ("gram_dense", "wgmma"),
+                     ("mlstm", "mma")):
         for c in cases[name]:
-            want = "fma" if c["dtype"] == "fp32" else "wgmma"
+            want = "fma" if c["dtype"] == "fp32" else tc
             check(c["body"] == want, f"{name} {c['case']} {c['dtype']} ran "
                   f"the {c['body']} body, not {want}")
     kernels_seconds = time.perf_counter() - t0
@@ -1289,9 +1317,10 @@ def main() -> int:
     ported["swa"] = "src/repro_torch/kernels/swa/csrc/swa.cu"
     ported["rglru"] = "src/repro_torch/kernels/rglru/csrc/rglru.cu"
     ported["mlstm"] = "src/repro_torch/kernels/mlstm/csrc/mlstm.cu"
-    # 9. the profiler's device split of the bf16 Gram cases, after every
-    # timed phase
+    # 9. the profiler's device split of the Gram cases and of mlstm's
+    # grids, after every timed phase
     gram_device_splits(torch, kernel, cases, gen)
+    mlstm_device_splits(torch, mlstm_kernel, cases, gen)
     launches.update(swa=route6["launches"]["swa"],
                     rglru=route6["launches"]["rglru"],
                     mlstm=route8["launches"]["mlstm"])

@@ -4,7 +4,10 @@
 oracle of both chunkwise forms.  ``mlstm_chunkwise_ref`` is the chunk
 algebra of the TPU kernel (``repro/kernels/mlstm/kernel.py``) as a loop over
 chunks: the tests and the ``use_kernel=False`` path use it, and
-``chip_smoke.py`` holds the CUDA kernel against it on the card.
+``chip_smoke.py`` holds the CUDA kernel against it on the card.  With
+``operand_terms`` it models the CUDA kernel's bf16 body, whose two D x D
+products take their fp32 operand (C, and w v) on the tensor cores as a sum
+of bf16 terms; only the tests call it so.
 """
 
 from __future__ import annotations
@@ -49,13 +52,34 @@ def mlstm_sequential_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out
 
 
+def bf16_terms(x: torch.Tensor, n: int) -> torch.Tensor:
+    """x as the sum of its first ``n`` bf16 terms, in fp32: t_0 = bf16(x),
+    t_1 = bf16(x - t_0), ... (the split of the CUDA kernel's bf16 body)."""
+    total = torch.zeros_like(x)
+    rest = x
+    for _ in range(n):
+        term = rest.bfloat16().float()
+        total = total + term
+        rest = rest - term
+    return total
+
+
 def mlstm_chunkwise_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         log_f: torch.Tensor, i_gate: torch.Tensor,
-                        chunk: int) -> torch.Tensor:
+                        chunk: int,
+                        operand_terms: int | None = None) -> torch.Tensor:
     """The same function in the TPU kernel's chunkwise form, from zero
     state.  Inputs are widened to fp32 and q is scaled by D^-1/2 before
     q k^T.  A ragged S is padded with identity steps (log_f = 0, i = -1e30)
-    whose outputs are dropped.  Returns h: (B, H, S, D) fp32."""
+    whose outputs are dropped.  Returns h: (B, H, S, D) fp32.
+
+    ``operand_terms=n`` replaces the fp32 operand of the two D x D products,
+    the carried state C in q C^T and w v in the state update, by the sum of
+    its first n bf16 terms (``bf16_terms``), as the CUDA kernel's bf16 body
+    multiplies them; the scores, S V and the denominator stay fp32.
+    ``None`` (the default) is the plain fp32 algebra."""
+    split = ((lambda x: x) if operand_terms is None
+             else (lambda x: bf16_terms(x, operand_terms)))
     B, H, S, D = q.shape
     c = min(chunk, S)
     pad = (-S) % c
@@ -87,7 +111,7 @@ def mlstm_chunkwise_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         den = Sij.sum(dim=-1)
         # inter-chunk, from the carried state
         decay_q = torch.exp(m_prev[..., None] + A - m_i)
-        num = num + decay_q[..., None] * (qc @ C.mT)
+        num = num + decay_q[..., None] * (qc @ split(C).mT)
         den = den + decay_q * (qc @ n[..., None])[..., 0]
         out[:, :, t0:t0 + c] = num / torch.maximum(
             den.abs(), torch.exp(-m_i))[..., None]
@@ -95,7 +119,7 @@ def mlstm_chunkwise_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         A_c, m_new = A[..., -1], m_i[..., -1]
         w = torch.exp(A_c[..., None] - A + ic - m_new[..., None])
         decay_C = torch.exp(m_prev + A_c - m_new)
-        C = decay_C[..., None, None] * C + (vc * w[..., None]).mT @ kc
+        C = decay_C[..., None, None] * C + split(vc * w[..., None]).mT @ kc
         n = decay_C[..., None] * n + (w[..., None, :] @ kc)[..., 0, :]
         m_prev = m_new
     return out[:, :, :S]

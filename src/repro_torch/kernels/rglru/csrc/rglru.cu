@@ -9,17 +9,24 @@
 // 4 (3 B S D + B D) bytes over 3.35 TB/s.
 //
 // Design:
-//  * One thread per (batch, channel), walking the whole time axis with the
-//    carry in a register: the TPU kernel's sequential time grid axis and its
-//    VMEM carry become this loop.  Neighbouring threads take neighbouring
-//    channels, so every load and store of a time step is coalesced along D.
-//  * The walk loads U = 16 steps of log_a and b before it uses any of them,
-//    so each thread keeps 32 loads in flight; with B x D threads in all (8 x
-//    2560 at recurrentgemma-2b's width, ~5 warps an SM) that is what keeps
-//    the memory busy.  Splitting time across threads (a chunked scan with a
-//    carry fix-up pass) is later work.
-//  * Ragged S and D need no padding: the last block masks channels >= D and
-//    the walk ends at S.
+//  * One block per (64 channels, batch), one thread per channel walking the
+//    whole time axis with the carry in a register: the TPU kernel's
+//    sequential time grid axis and its VMEM carry become this loop.  At
+//    recurrentgemma-2b's width (8 x 2560) that is 320 blocks for 132 SMs.
+//  * The loads do not wait on the walk: slices of TS = 16 steps of log_a
+//    and b for the block's channels are staged by cp.async into a ring of
+//    RING = 4 slices in shared memory (32 KB), RING - 1 slices in flight
+//    while the threads walk the current one (8 slices or 8-step slices read
+//    no faster on an H100, 32-step slices and 128 channels a block no
+//    faster at (8, 4096, 2560)).  One barrier a slice
+//    frees the slot that the next copy refills.  16-byte copies where
+//    D % 4 == 0 and the tensors lie on 16 bytes, 4-byte copies otherwise.
+//  * A walk's step reads its log_a and b from shared memory; the exps of a
+//    slice do not depend on h, so only the multiply and the add are in the
+//    chain.  Each step's h is stored straight to device memory, coalesced
+//    along the block's channels.
+//  * Ragged S and D need no padding: channels >= D and steps >= S are
+//    zero-filled in the ring and never stored.
 //  * Each step rounds exp(log_a) * h and then the sum, as the plain version
 //    does (no FMA contraction); expf is the accurate one (no fast math).
 //
@@ -28,39 +35,88 @@
 
 #include <cuda_runtime.h>
 
+#include "ptx.cuh"
+
 namespace {
 
-constexpr int NT = 128;  // channels per block
-constexpr int U = 16;    // time steps loaded ahead
+constexpr int NC = 64;    // channels per block, one thread each
+constexpr int TS = 16;    // time steps per slice
+constexpr int RING = 4;   // slices in the ring (RING - 1 in flight)
+constexpr int SLICE = 2 * TS * NC;  // floats of one slice: log_a, then b
+constexpr size_t SMEM = static_cast<size_t>(RING) * SLICE * sizeof(float);
 
-__global__ void __launch_bounds__(NT)
+template <bool kVec>
+__global__ void __launch_bounds__(NC)
     rglru_kernel(const float* __restrict__ log_a, const float* __restrict__ b,
                  const float* __restrict__ h0, float* __restrict__ out, int S, int D) {
-  const int d = blockIdx.x * NT + threadIdx.x;
-  if (d >= D) return;
+  extern __shared__ float4 smem4[];
+  float* ring = reinterpret_cast<float*>(smem4);  // [RING][2][TS][NC]
+  const int tid = threadIdx.x, c0 = blockIdx.x * NC, d = c0 + tid;
   const size_t batch = blockIdx.y;
-  const size_t base = batch * S * D + d;
-  float h = h0[batch * D + d];
-  int t = 0;
-  for (; t + U <= S; t += U) {
-    float a[U], x[U];
-#pragma unroll
-    for (int u = 0; u < U; ++u) {
-      const size_t at = base + static_cast<size_t>(t + u) * D;
-      a[u] = log_a[at];
-      x[u] = b[at];
+  const size_t base = batch * S * D + c0;
+  const int live = min(NC, D - c0);  // channels of this block
+  const int ns = (S + TS - 1) / TS;
+
+  auto issue = [&](int g) {
+    if (g < ns) {
+      float* st = ring + (g % RING) * SLICE;
+      const int t0 = g * TS;
+      if constexpr (kVec) {
+        for (int x = tid; x < SLICE / 4; x += NC) {
+          const int arr = x / (TS * NC / 4), r = (x / (NC / 4)) % TS, c4 = (x % (NC / 4)) * 4;
+          const bool valid = t0 + r < S && c4 < live;
+          const float* src = (arr ? b : log_a) + base + static_cast<size_t>(t0 + r) * D + c4;
+          cp_async16(st + (arr * TS + r) * NC + c4, valid ? src : log_a, valid);
+        }
+      } else {
+        for (int x = tid; x < SLICE; x += NC) {
+          const int arr = x / (TS * NC), r = (x / NC) % TS, cc = x % NC;
+          const bool valid = t0 + r < S && cc < live;
+          const float* src = (arr ? b : log_a) + base + static_cast<size_t>(t0 + r) * D + cc;
+          cp_async4(st + (arr * TS + r) * NC + cc, valid ? src : log_a, valid);
+        }
+      }
     }
+    cp_async_commit();
+  };
+  for (int g = 0; g < RING - 1; ++g) issue(g);
+
+  float h = d < D ? h0[batch * D + d] : 0.f;
+  float* o = out + base + tid;
+  for (int g = 0; g < ns; ++g) {
+    cp_async_wait<RING - 2>();
+    __syncthreads();  // slice g landed; every thread is done with slice g - 1
+    issue(g + RING - 1);
+    const float* a_s = ring + (g % RING) * SLICE + tid;
+    const float* b_s = a_s + TS * NC;
+    const int t0 = g * TS;
+    if (d >= D) continue;
+    if (t0 + TS <= S) {
+      float e[TS];
 #pragma unroll
-    for (int u = 0; u < U; ++u) {
-      h = __fadd_rn(__fmul_rn(expf(a[u]), h), x[u]);
-      out[base + static_cast<size_t>(t + u) * D] = h;
+      for (int u = 0; u < TS; ++u) e[u] = expf(a_s[u * NC]);
+#pragma unroll
+      for (int u = 0; u < TS; ++u) {
+        h = __fadd_rn(__fmul_rn(e[u], h), b_s[u * NC]);
+        o[static_cast<size_t>(t0 + u) * D] = h;
+      }
+    } else {
+      for (int u = 0; t0 + u < S; ++u) {
+        h = __fadd_rn(__fmul_rn(expf(a_s[u * NC]), h), b_s[u * NC]);
+        o[static_cast<size_t>(t0 + u) * D] = h;
+      }
     }
   }
-  for (; t < S; ++t) {
-    const size_t at = base + static_cast<size_t>(t) * D;
-    h = __fadd_rn(__fmul_rn(expf(log_a[at]), h), b[at]);
-    out[at] = h;
-  }
+}
+
+template <bool kVec>
+int launch(const void* log_a, const void* b, const void* h0, void* out, int B, int S, int D,
+           cudaStream_t stream) {
+  const dim3 grid((D + NC - 1) / NC, B);
+  rglru_kernel<kVec><<<grid, NC, SMEM, stream>>>(
+      static_cast<const float*>(log_a), static_cast<const float*>(b),
+      static_cast<const float*>(h0), static_cast<float*>(out), S, D);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -70,11 +126,11 @@ extern "C" {
 int rglru_f32(const void* log_a, const void* b, const void* h0, void* out, int B, int S, int D,
               void* stream) {
   cudaGetLastError();
-  const dim3 grid((D + NT - 1) / NT, B);
-  rglru_kernel<<<grid, NT, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(log_a), static_cast<const float*>(b),
-      static_cast<const float*>(h0), static_cast<float*>(out), S, D);
-  return static_cast<int>(cudaGetLastError());
+  if (B < 1 || B > 65535 || S < 1 || D < 1) return static_cast<int>(cudaErrorInvalidValue);
+  auto st = static_cast<cudaStream_t>(stream);
+  if (D % 4 == 0 && aligned16(log_a, b))
+    return launch<true>(log_a, b, h0, out, B, S, D, st);
+  return launch<false>(log_a, b, h0, out, B, S, D, st);
 }
 
 }  // extern "C"

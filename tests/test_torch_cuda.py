@@ -533,8 +533,12 @@ def test_swa_bf16_takes_views_off_16_bytes(gen, D):
     assert _norm_rel(o.float(), plain) <= SWA_NORM_TOL["bf16"]
 
 
-@pytest.mark.parametrize("B,S,D", [(3, 1000, 300), (2, 17, 130), (1, 1, 1),
-                                   (2, 4096, 256)])
+@pytest.mark.parametrize("B,S,D", [
+    (3, 1000, 300), (2, 17, 130), (1, 1, 1), (2, 4096, 256),
+    (2, 4099, 2560),      # the route's width; S not a multiple of a 16-step slice
+    (1, 129, 100),        # D not a multiple of the 64-channel block, 16-byte copies
+    (2, 40, 66),          # D % 4 != 0: 4-byte copies, a ragged last block
+])
 def test_rglru_matches_plain(gen, B, S, D):
     log_a = -torch.nn.functional.softplus(
         torch.randn(B, S, D, device="cuda", generator=gen))
@@ -544,6 +548,19 @@ def test_rglru_matches_plain(gen, B, S, D):
     h = rglru_ops.rglru_scan(log_a, b, h0)
     torch.cuda.synchronize()
     assert rglru_kernel.LAUNCHES["rglru"] == before + 1
+    assert _rel(h, rglru_scan_ref(log_a, b, h0)) <= TOL["fp32"]
+
+
+def test_rglru_takes_views_off_16_bytes(gen):
+    """Inputs that start 4 bytes past 16 take the 4-byte copies."""
+    B, S, D = 2, 100, 128
+    buf = torch.randn(2, B * S * D + 1, device="cuda", generator=gen)
+    buf[0] = -torch.nn.functional.softplus(buf[0])
+    log_a, b = (buf[x, 1:].view(B, S, D) for x in range(2))
+    h0 = torch.randn(B, D, device="cuda", generator=gen)
+    assert log_a.data_ptr() % 16 != 0
+    h = rglru_kernel.rglru(log_a, b, h0)
+    torch.cuda.synchronize()
     assert _rel(h, rglru_scan_ref(log_a, b, h0)) <= TOL["fp32"]
 
 
@@ -588,6 +605,9 @@ def _mlstm_inputs(gen, B, H, S, D, dtype, log_f=None, i_shift=0.0):
     (1, 1, 1, 16, 4),            # one step
     (1, 2, 300, 1024, 64),       # the route's D
     (2, 1, 77, 32, 256),         # one chunk, shorter than the chunk size
+    (1, 2, 300, 80, 40),         # D^-1/2 not a power of two, several chunks
+    (1, 2, 1, 1024, 256),        # one step at the route's D
+    (1, 1, 37, 32, 4),           # chunks of 4, a ragged tail
 ])
 def test_mlstm_matches_plain(gen, B, H, S, D, chunk, precision):
     dtype = torch.bfloat16 if precision == "bf16" else torch.float32
@@ -596,6 +616,14 @@ def test_mlstm_matches_plain(gen, B, H, S, D, chunk, precision):
     h = mlstm_kernel.mlstm(q, k, v, f, i, chunk)
     torch.cuda.synchronize()
     assert mlstm_kernel.LAUNCHES["mlstm"] == before + 1
+    # bf16 on the tensor cores, each fp32 operand in two bf16 terms or
+    # more; fp32 on the CUDA cores
+    ran = mlstm_kernel.LAST_MLSTM
+    assert ran["dtype"] == precision
+    if precision == "bf16":
+        assert ran["body"] == "mma" and min(ran["terms"].values()) >= 2
+    else:
+        assert ran["body"] == "fma" and not any(ran["terms"].values())
     assert h.dtype == torch.float32 and torch.isfinite(h).all()
     plain = mlstm_chunkwise_ref(q, k, v, f, i, chunk)
     assert _rel(h, plain) <= TOL["fp32"]
@@ -619,6 +647,23 @@ def test_mlstm_long_memory_and_negative_input_gates(gen):
                                   i_shift=-100.0)
     h = mlstm_kernel.mlstm(q, k, v, f, i, 64)
     assert not h.any() and not mlstm_chunkwise_ref(q, k, v, f, i, 64).any()
+
+
+def test_mlstm_bf16_takes_views_off_16_bytes(gen):
+    """bf16 q, k, v that start 2 bytes past 16 are copied onto 16 bytes
+    before the tensor-core body stages their rows."""
+    B, H, S, D = 1, 2, 200, 64
+    buf = torch.randn(3, B * H * S * D + 1, device="cuda",
+                      generator=gen).bfloat16()
+    q, k, v = (buf[x, 1:].view(B, H, S, D) for x in range(3))
+    _, _, _, f, i = _mlstm_inputs(gen, B, H, S, D, torch.bfloat16)
+    assert q.data_ptr() % 16 != 0
+    h = mlstm_kernel.mlstm(q, k, v, f, i, 64)
+    torch.cuda.synchronize()
+    assert mlstm_kernel.LAST_MLSTM["body"] == "mma"
+    plain = mlstm_chunkwise_ref(q, k, v, f, i, 64)
+    assert _rel(h, plain) <= TOL["fp32"]
+    assert _norm_rel(h, plain) <= MLSTM_NORM_TOL
 
 
 def test_mlstm_refuses_what_the_kernel_does_not_take(gen):

@@ -22,6 +22,7 @@ from repro.kernels.mlstm.ops import mlstm_chunkwise as j_chunkwise  # noqa: E402
 from repro.kernels.mlstm.ref import mlstm_sequential_ref as j_seq  # noqa: E402
 from repro_torch.kernels.mlstm import kernel, ops  # noqa: E402
 from repro_torch.kernels.mlstm.ref import (  # noqa: E402
+    bf16_terms,
     mlstm_chunkwise_ref,
     mlstm_sequential_ref,
 )
@@ -119,3 +120,58 @@ def test_mlstm_is_forward_only_and_checks_devices():
         kernel.mlstm(q.to("meta"), k, v.detach(), f, i, 4)
     with pytest.raises(ValueError, match="chunk"):
         kernel.mlstm(q, k, v.detach(), f, i, 0)
+
+
+# chip_smoke.MLSTM_NORM_TOL: the card's gate of the kernel against its plain
+# version, in norm, in every dtype
+MLSTM_NORM_TOL = 1e-5
+
+
+def _norm_rel(a, b):
+    return float(torch.linalg.vector_norm(a - b) / torch.linalg.vector_norm(b))
+
+
+@pytest.mark.parametrize("log_f", [None, -0.01], ids=["std", "long_memory"])
+def test_mlstm_operand_split_two_terms_hold_one_does_not(log_f):
+    """The CUDA kernel's bf16 body multiplies C and w v as sums of bf16
+    terms.  Its plain model on bf16 q, k, v at (1, 2, 512, 256): two terms
+    stay within half the card's norm gate of the fp32 algebra (6.8e-7 and
+    1.8e-6 measured here), one term fails the gate by more than 20x (4.5e-4
+    and 1.2e-3), so the gate tells a lost low term."""
+    q, k, v, f, i = (torch.tensor(a) for a in
+                     _inputs(11, 1, 2, 512, 256, log_f=log_f))
+    q, k, v = q.bfloat16(), k.bfloat16(), v.bfloat16()
+    want = mlstm_chunkwise_ref(q, k, v, f, i, 128)
+    two = mlstm_chunkwise_ref(q, k, v, f, i, 128, operand_terms=2)
+    one = mlstm_chunkwise_ref(q, k, v, f, i, 128, operand_terms=1)
+    assert _norm_rel(two, want) <= MLSTM_NORM_TOL / 2
+    assert _norm_rel(one, want) >= 20 * MLSTM_NORM_TOL
+
+
+@pytest.mark.parametrize("S,D,chunk", [(96, 32, 32), (77, 16, 32)])
+def test_mlstm_operand_split_model_matches_reference(S, D, chunk):
+    """``operand_terms=None`` is the plain version bit for bit; the
+    two-term model computes the reference's function within its 2e-4."""
+    arrays = _inputs(S + D, 2, 2, S, D)
+    q, k, v, f, i = (torch.tensor(a) for a in arrays)
+    plain = mlstm_chunkwise_ref(q, k, v, f, i, chunk)
+    assert torch.equal(
+        mlstm_chunkwise_ref(q, k, v, f, i, chunk, operand_terms=None), plain)
+    two = mlstm_chunkwise_ref(q, k, v, f, i, chunk, operand_terms=2)
+    want = np.asarray(j_chunkwise(*(jnp.asarray(a) for a in arrays),
+                                  chunk=chunk))
+    np.testing.assert_allclose(two.numpy(), want, **TOL)
+
+
+@pytest.mark.parametrize("n", [1, 2, 3])
+def test_bf16_terms_keep_8_bits_a_term(n):
+    """Each bf16 term (8 significant bits, round to nearest) leaves at most
+    2^-8 of what it splits, so n terms hold x to 2^-8n of |x|; one term is
+    x rounded to bf16."""
+    rng = np.random.default_rng(n)
+    x = torch.tensor(rng.standard_normal(4096)
+                     * 10.0 ** rng.uniform(-6, 6, 4096), dtype=torch.float32)
+    got = bf16_terms(x, n)
+    assert bool(((got - x).abs() <= 2.0 ** (-8 * n) * x.abs()).all())
+    if n == 1:
+        assert torch.equal(got, x.bfloat16().float())
