@@ -18,12 +18,15 @@ Phases (any failure raises and the script exits non-zero):
      the FMA body in fp32 and the tensor cores in bf16, and the wrapper's
      host time per call; ``gram_tri_q``: int8 from one
      Hq/scales per case, block_l 128 and 32, its quantization pass timed
-     apart;
+     apart, its G bit-equal to the plain version's, its K-major copies of
+     Hq and T (the body's first grid) byte for byte their plain layout and
+     timed apart;
      ``gram_dense``: one agent); G must be exactly symmetric (all but the
      dense baseline); ``gram_tri`` and ``gram_dense`` in fp32 and bf16 must
      also equal their plain versions exactly on small-integer inputs;
      ``gram_fused`` also reports its workspace and
-     chunks (two at the full shape in fp32); ``swa`` at phase 6's shape,
+     chunks (two at the full shape in fp32, three at the ragged shape with
+     the workspace budget cut); ``swa`` at phase 6's shape,
      recurrentgemma-2b's and
      h2o-danube's at S = 8192, and a ragged one, also held in norm
      (``SWA_NORM_TOL``); ``rglru`` at phase 6's
@@ -493,6 +496,22 @@ def kernel_case(torch, kernel, ref, kind, shape, precision, activation,
         n_scales = scales.numel()
         extra.update(block_n=bn, block_l=block_l)
         del H
+        # the body's first grid alone: the K-major copies of Hq and T, byte
+        # for byte their plain layout, timed apart against reading Hq and T
+        # and writing the copies
+        stage, bnp = kernel.q_layout(N, bn)
+        Hk, Tk = kernel.q_kmajor(Hq, T, bn)
+        torch.cuda.synchronize()
+        check(torch.equal(Hk, ref.q_kmajor_ref(Hq, bn, bnp))
+              and torch.equal(Tk, ref.q_kmajor_ref(T, bn, bnp)),
+              f"gram_tri_q {label}: a K-major copy differs from its plain "
+              f"layout")
+        copy_bytes = Hq.numel() + Hk.numel() + 2 * (T.numel() + Tk.numel())
+        extra.update(
+            stage=stage, padded_block_n=bnp, kmajor_bytes=Hk.numel(),
+            kmajor_ms=time_ms(torch, lambda: kernel.q_kmajor(Hq, T, bn)),
+            kmajor_bound_ms=copy_bytes / PEAK_BYTES_PER_S * 1e3)
+        del Hk, Tk
 
         def run():
             return kernel.gram_tri_q(Hq, scales, T, block_n=bn,
@@ -555,7 +574,7 @@ def kernel_case(torch, kernel, ref, kind, shape, precision, activation,
     G, R = run()
     torch.cuda.synchronize()
     launched = dict(kernel.LAST_FUSED)   # this call's, as the wrapper counted
-    body = kernel.LAST_GRAM["body"]      # gram_tri, gram_dense: the body it ran
+    body = kernel.LAST_GRAM["body"]      # the body a Gram call ran
     Gp, Rp = plain()
     check(bool(torch.isfinite(G).all() and torch.isfinite(R).all()),
           f"{kind} {label}: non-finite output")
@@ -567,6 +586,12 @@ def kernel_case(torch, kernel, ref, kind, shape, precision, activation,
     check(rel_g <= TOL[precision] and rel_r <= TOL[precision],
           f"{kind} {label} {precision}: relative error G {rel_g:.3g} "
           f"R {rel_r:.3g} above {TOL[precision]}")
+    if kind == "gram_tri_q":
+        # G's tile products are exact and scaled into fp32 in the plain
+        # version's order: G equals it bit for bit
+        extra["g_abs_err"] = abs_g
+        check(abs_g == 0.0, f"gram_tri_q {label}: G off its plain version "
+              f"by {abs_g:.3g}, where both are exact")
     if kind == "gram_dense":
         m = 1
     nbytes, bound_ms, bound_by = gram_cost(
@@ -589,6 +614,8 @@ def kernel_case(torch, kernel, ref, kind, shape, precision, activation,
                     workspace_bytes=launched["workspace_bytes"],
                     recomputed_hidden_flops=2 * m * d_in * L
                     * (launched["hidden_rows"] - N))
+    if kind == "gram_tri_q":
+        case.update(body=body, host_us=host_us(torch, run))
     if kind in ("gram_tri", "gram_dense"):
         # the wrapper's host time per call, and the library call's, taken
         # before any profiler session (phase 9 has the device time)
@@ -903,6 +930,7 @@ def main() -> int:
               kernel.library().gram_wgmma_smem_bytes(),
           "gram_f32_dynamic_smem_bytes":
               kernel.library().gram_f32_smem_bytes(),
+          "gram_q_dynamic_smem_bytes": kernel.library().gram_q_smem_bytes(),
           "swa_dynamic_smem_bytes": {
               str(dtype).removeprefix("torch."): {
                   D: swa_kernel.smem_bytes(D, dtype) for D in (64, 120, 256)}
@@ -931,6 +959,22 @@ def main() -> int:
                 cases["gram_fused"].append(kernel_case(
                     torch, kernel, ref, "gram_fused", shape, precision,
                     activation, gen, label))
+    # fp32 gram_fused in three chunks (the workspace budget cut to 350 rows
+    # of the ragged shape, as its test cuts it, then restored): later chunks
+    # add into G and R
+    row_bytes = ragged_shape[0] * kernel.fused_workspace_width(
+        ragged_shape[2], "fp32") * 4
+    budget = kernel.FUSED_WORKSPACE_BYTES
+    kernel.FUSED_WORKSPACE_BYTES = 350 * row_bytes
+    try:
+        cases["gram_fused"].append(kernel_case(
+            torch, kernel, ref, "gram_fused", ragged_shape, "fp32", "sigmoid",
+            gen, "ragged_3_chunks"))
+    finally:
+        kernel.FUSED_WORKSPACE_BYTES = budget
+    check(cases["gram_fused"][-1]["chunks"] == 3,
+          f"gram_fused ragged_3_chunks ran {cases['gram_fused'][-1]['chunks']} "
+          f"chunks, not 3")
     # bf16 gram_tri at the main path's shape, and a ragged N with
     # L % 8 == 0 but L % 128 != 0 (L = 300 above reads a padded copy of H)
     ragged_tc_shape = (3, 1000, 296, 3, 70)
@@ -993,7 +1037,7 @@ def main() -> int:
     # tensor cores in bf16 (L = 300 from the padded copy of H); so did
     # every mlstm case (mma.sync with split operands in bf16)
     for name, tc in (("gram_tri", "wgmma"), ("gram_dense", "wgmma"),
-                     ("mlstm", "mma")):
+                     ("gram_tri_q", "wgmma"), ("mlstm", "mma")):
         for c in cases[name]:
             want = "fma" if c["dtype"] == "fp32" else tc
             check(c["body"] == want, f"{name} {c['case']} {c['dtype']} ran "
@@ -1333,6 +1377,7 @@ def main() -> int:
             "max_abs_err": top["max_abs_err"], "ms": top["kernel_ms"],
             "plain_ms": top["plain_ms"], "bound_ms": top["bound_ms"],
             "bound_by": top["bound_by"], "library_ms": top["library_ms"],
+            **({"body": top["body"]} if "body" in top else {}),
             "cases": cs,
         })
     emit({"kernels": rows})

@@ -15,10 +15,9 @@
 // TFLOP/s bf16 tensor-core rate, which only wgmma reaches: every bf16 call
 // runs gram_wgmma_kernel (TMA + wgmma, see below), reading H and T from
 // copies padded to rows of 16 bytes where they are not so already.  int8
-// (gram_tri_q) runs on the tensor cores through mma.sync m16n8k32 with int32
-// accumulators; its floor is the 1979 TOP/s int8 rate, far below what
-// byte-wise staging without a pipeline reaches (a TMA + wgmma version is
-// later work).
+// (gram_tri_q) runs gram_q_kernel (TMA + int8 wgmma from a K-major copy of
+// Hq, see below); its floor is the bytes: the 1979 TOP/s int8 rate puts the
+// products below the time of writing the fp32 G.
 //
 // The fp32 body (gram_f32_kernel: gram_tri, gram_dense and gram_fused's fp32
 // stage 2):
@@ -50,17 +49,57 @@
 //    (k, 0 .. k) and (k + 1 .. nl - 1, k)), and slot s of them multiplies
 //    rows [s rpb, (s + 1) rpb) of the tile, rpb = ceil(128 / nl), against
 //    T staged in the same ring, one (row, column) item a thread.
-//  * gram_tri_q keeps the triangle's grid and mirror.  The quantization
-//    tile (block_n rows x block_l columns, one fp32 scale each) is part of the
-//    math, not of this tiling: block_l may be 32 inside a 128-wide G tile, so
-//    each row and column of the tile looks up its own scale.  Within one row
-//    block the int8 products add exactly in int32 (32 samples per mma step,
-//    the step never crossing a row-block boundary: a partial step loads zero
-//    rows); at each row-block end the int32 tile converts to fp32 and adds
+//  * One owner per R item: where dw does not divide the block's threads,
+//    the threads past r_rows * dw own none; else the last of them would
+//    own the next pass's first row too, and a later gram_fused chunk would
+//    add into that item twice at once.
+//
+// gram_tri_q on int8 wgmma (gram_q_kernel), the port of gram_pallas_tri_q:
+//  * The quantization tile (block_n rows x block_l columns, one fp32 scale
+//    each) is part of the math, not of this tiling: block_l may be 32
+//    inside a 128-wide G tile, so each row and column of the tile looks up
+//    its own scale.  Within one row block the int8 products add exactly in
+//    int32; at each row-block end the int32 tile converts to fp32 and adds
 //    float(prod) * (s_i * s_j) to the fp32 accumulator, rounded in the
-//    reference's order (no FMA contraction).  R adds (q * s) * float(T_bf16)
-//    with fmaf on the blocks of column 0.  int32 -> fp32 is exact while
-//    block_n * 127^2 <= 2^24; the wrapper refuses block_n above 1040.
+//    plain version's order (no FMA contraction), so G equals it bit for bit.
+//    int32 -> fp32 is exact while block_n * 127^2 <= 2^24; the wrapper
+//    refuses block_n above 1040.
+//  * wgmma takes 8-bit operands K-major only (the sample axis contiguous),
+//    and Hq is (m, N, L) with L contiguous.  So a pre-pass
+//    (q_kmajor_kernel, a byte transpose through shared memory) writes Hq^T
+//    into a buffer the wrapper allocates, (m, L, nnq bnp): each row block's
+//    samples padded with zero samples to bnp, a multiple of the stage of KS
+//    = 128, 64 or 32 samples (kernel.py's q_layout: the deepest stage whose
+//    padding adds at most a quarter to the least).  Every stage lies in one
+//    row block, and a zero sample adds an exact 0 to the int32 sums.  The
+//    same grid writes T^T in that layout, (m, D, nnq bnp) bf16.
+//  * TMA copies KS samples x 128 rows of L (a KS-byte swizzle, rows past L
+//    read as 0) per tile per stage into a ring of QSTAGES = 4 stages, one
+//    producer warp (lane 0 issues the copies, every lane writes the
+//    stage's scales); two consumer warpgroups each run
+//    m64n128k32.s32.s8.s8 wgmmas for 64 rows of the tile, A and B both
+//    K-major, a diagonal tile's B from its A's copy.  One 128 x 128 tile at
+//    a time: its int32 and fp32 accumulators are 128 registers a thread
+//    (168 in all, one block an SM).  The blocks are persistent, one an
+//    SM, each walking the triangle's tiles of every agent, so the ring
+//    fills with the next tile's stages while a tile is flushed and stored
+//    (8% less device time than a block a tile on an H100).  Each tile and
+//    its mirror go straight from the accumulators to G in whole 32-byte
+//    sectors (staged through shared memory for coalesced rows, as in the
+//    bf16 body, the grid took 0.216 ms at the main shape against 0.191, in
+//    two calls on an H100).
+//  * R = sum (q s) T in fp32 FMAs on the CUDA cores, while the stage's
+//    wgmmas run, from the staged K-major rows and a TMA box of T^T (8
+//    columns a pass), spread over the tiles as in the fp32 body: a row's
+//    samples split over up to 16 neighbouring lanes, each byte converted
+//    once for all the pass's columns (the conversion by fp32 bit tricks:
+//    I2F runs at a quarter of the rate, and with it and a byte a column R
+//    took a third of the call on an H100), the lanes summed by a
+//    butterfly at the end.
+//  * What holds it (PERF.md §6): the operand copies stream at ~3.7 TB/s
+//    (two 128-row copies a tile; the registers leave no room for a
+//    second tile that would share one), and R's FMAs are ~20% of the grid
+//    at D = 3, ~45% at D = 8.
 //
 // gram_tri and gram_dense in bf16 on wgmma (gram_wgmma_kernel):
 //  * The output tiles and G's stores are those above: 128 x 128 G tiles (the
@@ -126,17 +165,17 @@
 //  * Stage 2 adds the chunk's lower-triangular G and its R into the outputs:
 //    the first chunk stores, each later chunk loads, adds and stores, one
 //    owner per element (a diagonal tile still writes its lower half and
-//    mirrors it, so G stays exactly symmetric).  fp32: the fp32 body.
-//    bf16: gram_mma_kernel, mma.sync m16n8k16 bf16 -> fp32 on the 2 x 4
-//    layout of 64 x 32 warp sub-tiles of gram_tri_q (same accumulator row and
-//    column maps), fragments by ldmatrix.trans from row-major H tiles staged
-//    with cp.async in a ring of four 32-sample stages (three in flight while
-//    one is read, one barrier a stage).  R is on the tensor cores too: on
-//    the j == 0 blocks each warp adds a 16-row x 16-column slice of H_i^T T
-//    (two mmas a k-step beside G's sixteen); on the FMA path, as in
-//    gram_tri, R took 0.8 of this grid's 2.0 ms on an H100 at m 8, N 8192,
-//    L 2048.  Both gram_fused kernels are held to 128 registers (a few
-//    bytes of spill), so that two blocks share an SM.
+//    mirrors it, so G stays exactly symmetric).  fp32: the fp32 body. bf16:
+//    gram_mma_kernel, mma.sync m16n8k16 bf16 -> fp32 on a 2 x 4 layout of 64 x
+//    32 warp sub-tiles (q_row, q_col: each fragment element's row and column),
+//    fragments by ldmatrix.trans from row-major H tiles staged with cp.async
+//    in a ring of four 32-sample stages (three in flight while one is read,
+//    one barrier a stage).  R is on the tensor cores too: on the j == 0 blocks
+//    each warp adds a 16-row x 16-column slice of H_i^T T (two mmas a k-step
+//    beside G's sixteen); on the FMA path, as in gram_tri, R took 0.8 of this
+//    grid's 2.0 ms on an H100 at m 8, N 8192, L 2048.  Both gram_fused kernels
+//    are held to 128 registers (a few bytes of spill), so that two blocks
+//    share an SM.
 //
 // Interface: plain C, one entry per kernel and dtype, launched on the caller's
 // stream; each returns cudaGetLastError() of its launch.  The dynamic shared
@@ -212,18 +251,6 @@ __device__ __forceinline__ void g_update(const float (*hi)[SI], const float (*hj
 #pragma unroll
       for (int q = 0; q < 8; ++q) acc[p][q] = fmaf(a[p], b[q], acc[p][q]);
   }
-}
-
-// R rows of tile i (the thread's l = tid % 128) and its 8 columns
-// d0 + (tid / 128) * 8 of the current 16-column pass (gram_tri_q)
-__device__ __forceinline__ void store_r(float* __restrict__ Ra, const float racc[8],
-                                        int L, int D, int i, int d0) {
-  const int l = i * BL + threadIdx.x % BL;
-  const int dbase = d0 + (threadIdx.x / BL) * 8;
-  if (l >= L) return;
-#pragma unroll
-  for (int q = 0; q < 8; ++q)
-    if (dbase + q < D) Ra[static_cast<size_t>(l) * D + dbase + q] = racc[q];
 }
 
 // One element of a lower-triangular tile and its mirror; G is exactly
@@ -347,10 +374,13 @@ __global__ void __launch_bounds__(NT, 2) gram_f32_kernel(
   for (int pass = 0; pass < n_pass; ++pass) {
     const bool do_g = (pass == 0);
     const int d0 = (pass % d_pass) * dw, q0 = (pass / d_pass) * r_rows;
-    // this thread's R item: row q of the block's list, column d
+    // this thread's R item: row q of the block's list, column d.  Only the
+    // first r_rows * dw threads own one: where dw does not divide NT, the
+    // last thread's row would be row q0 + r_rows, the next pass's first,
+    // and a later gram_fused chunk would add into that item twice at once.
     const int dq = threadIdx.x % dw, q = q0 + threadIdx.x / dw, d = d0 + dq;
     const bool do_r = q0 < nr;   // the block has R rows in this pass
-    const bool own_r = q < nr && d < D;
+    const bool own_r = q < nr && d < D && threadIdx.x < r_rows * dw;
     const bool from_i = q < ni;
     const int rc = from_i ? ri0 + q : rj0 + q - ni;    // its column in the staged tile
     float racc = 0.0f;
@@ -516,209 +546,18 @@ __global__ void __launch_bounds__(NT, 2) hidden_kernel(
   }
 }
 
-// ---------------------------------------------------------------------------
-// gram_tri_q: int8 tiles on the tensor cores, per-tile scales
-// ---------------------------------------------------------------------------
-
-constexpr int QK = 32;        // samples per mma step (k of m16n8k32)
-constexpr int QW = QK / 4;    // packed 32-bit words per column per step
-constexpr int QS = QW + 4;    // smem row stride in words: conflict-free fragments
+// The 2 x 4 layout of 64 x 32 warp sub-tiles of gram_mma_kernel: tile row /
+// column of accumulator element e of fragment (mi, ni).
 constexpr int WM = 64;        // warp tile rows (8 warps: 2 x 4)
 constexpr int WN = 32;        // warp tile columns
 
 static_assert(NT / 32 == (BL / WM) * (BL / WN), "one warp per 64 x 32 sub-tile");
-static_assert(NT == 2 * BL, "R: two threads per tile column");
 
-// dst[c][w] packs rows n0 + 4w .. n0 + 4w + 3 of column col0 + c, the lowest
-// row in the lowest byte (the k order of an mma fragment register); rows >=
-// n_end and columns >= L load as 0.
-__device__ __forceinline__ void load_q_tile(uint32_t (*dst)[QS],
-                                            const int8_t* __restrict__ Hq, int L,
-                                            int n0, int n_end, int col0) {
-  for (int e = threadIdx.x; e < BL * QW; e += NT) {
-    const int c = e % BL, w = e / BL;
-    const int l = col0 + c;
-    uint32_t word = 0;
-    if (l < L) {
-#pragma unroll
-      for (int b = 0; b < 4; ++b) {
-        const int n = n0 + 4 * w + b;
-        if (n < n_end)
-          word |= static_cast<uint32_t>(static_cast<uint8_t>(
-                      Hq[static_cast<size_t>(n) * L + l]))
-                  << (8 * b);
-      }
-    }
-    dst[c][w] = word;
-  }
-}
-
-__device__ __forceinline__ void load_t_q(float (*dst)[RD],
-                                         const __nv_bfloat16* __restrict__ Tm, int D,
-                                         int n0, int n_end, int d0) {
-  for (int e = threadIdx.x; e < QK * RD; e += NT) {
-    const int k = e / RD, q = e % RD;
-    const int n = n0 + k, d = d0 + q;
-    dst[k][q] =
-        (n < n_end && d < D) ? __bfloat162float(Tm[static_cast<size_t>(n) * D + d]) : 0.0f;
-  }
-}
-
-// per-column scales of row block nb for the 128 columns from col0 (0 past L)
-__device__ __forceinline__ void load_scales(float* dst, const float* __restrict__ Sa,
-                                            int nlq, int L, int bl, int nb, int col0) {
-  for (int c = threadIdx.x; c < BL; c += NT) {
-    const int l = col0 + c;
-    dst[c] = l < L ? Sa[static_cast<size_t>(nb) * nlq + l / bl] : 0.0f;
-  }
-}
-
-__device__ __forceinline__ void mma_s8(int (&d)[4], const uint32_t (&a)[4],
-                                       const uint32_t (&b)[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// One k = 32 step of the warp's 64 x 32 sub-tile: A = the i tile (row-major
-// 16 x 32 fragments), B = the j tile (column-major 32 x 8 fragments).
-__device__ __forceinline__ void q_update(const uint32_t (*hi)[QS],
-                                         const uint32_t (*hj)[QS], int wm, int wn,
-                                         int lane, int (&acc)[4][4][4]) {
-  const int g = lane >> 2, t = lane & 3;
-  uint32_t a[4][4], b[4][2];
-#pragma unroll
-  for (int mi = 0; mi < 4; ++mi) {
-    const int r = wm * WM + mi * 16 + g;
-    a[mi][0] = hi[r][t];
-    a[mi][1] = hi[r + 8][t];
-    a[mi][2] = hi[r][t + 4];
-    a[mi][3] = hi[r + 8][t + 4];
-  }
-#pragma unroll
-  for (int ni = 0; ni < 4; ++ni) {
-    const int c = wn * WN + ni * 8 + g;
-    b[ni][0] = hj[c][t];
-    b[ni][1] = hj[c][t + 4];
-  }
-#pragma unroll
-  for (int mi = 0; mi < 4; ++mi)
-#pragma unroll
-    for (int ni = 0; ni < 4; ++ni) mma_s8(acc[mi][ni], a[mi], b[ni]);
-}
-
-// Tile row / column of accumulator element e of fragment (mi, ni).
 __device__ __forceinline__ int q_row(int wm, int mi, int lane, int e) {
   return wm * WM + mi * 16 + (lane >> 2) + (e >= 2 ? 8 : 0);
 }
 __device__ __forceinline__ int q_col(int wn, int ni, int lane, int e) {
   return wn * WN + ni * 8 + (lane & 3) * 2 + (e & 1);
-}
-
-__global__ void __launch_bounds__(NT) gram_tri_q_kernel(
-    const int8_t* __restrict__ Hq, const float* __restrict__ S,
-    const __nv_bfloat16* __restrict__ Tg, float* __restrict__ G, float* __restrict__ R,
-    int N, int L, int D, int bn, int bl) {
-  __shared__ __align__(16) uint32_t qi_s[BL][QS];
-  __shared__ __align__(16) uint32_t qj_s[BL][QS];
-  __shared__ __align__(16) float t_s[QK][RD];
-  __shared__ float si_s[BL];
-  __shared__ float sj_s[BL];
-
-  const int a = blockIdx.y;
-  int i, j;
-  tri_decode(blockIdx.x, i, j);
-  const int nnq = (N + bn - 1) / bn, nlq = (L + bl - 1) / bl;
-  const int8_t* Ha = Hq + static_cast<size_t>(a) * N * L;
-  const float* Sa = S + static_cast<size_t>(a) * nnq * nlq;
-  const __nv_bfloat16* Ta = Tg + static_cast<size_t>(a) * N * D;
-  const bool diag = (i == j), owns_r = (j == 0);
-  const uint32_t(*qj)[QS] = diag ? qi_s : qj_s;
-  const float* sj = diag ? si_s : sj_s;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int wm = warp / (BL / WN), wn = warp % (BL / WN);
-
-  float acc[4][4][4];
-  int iacc[4][4][4];
-#pragma unroll
-  for (int mi = 0; mi < 4; ++mi)
-#pragma unroll
-    for (int ni = 0; ni < 4; ++ni)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[mi][ni][e] = 0.0f;
-
-  const int n_pass = owns_r ? (D + RD - 1) / RD : 1;
-  for (int pass = 0; pass < n_pass; ++pass) {
-    const bool do_g = (pass == 0);
-    const int d0 = pass * RD;
-    const int rl = threadIdx.x % BL, rd = (threadIdx.x / BL) * 8;
-    float racc[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-    for (int nb = 0; nb < nnq; ++nb) {
-      const int b0 = nb * bn, b_end = min(b0 + bn, N);
-      __syncthreads();  // the previous block's flush has read the scales
-      load_scales(si_s, Sa, nlq, L, bl, nb, i * BL);
-      if (do_g && !diag) load_scales(sj_s, Sa, nlq, L, bl, nb, j * BL);
-#pragma unroll
-      for (int mi = 0; mi < 4; ++mi)
-#pragma unroll
-        for (int ni = 0; ni < 4; ++ni)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) iacc[mi][ni][e] = 0;
-      for (int n0 = b0; n0 < b_end; n0 += QK) {
-        load_q_tile(qi_s, Ha, L, n0, b_end, i * BL);
-        if (do_g && !diag) load_q_tile(qj_s, Ha, L, n0, b_end, j * BL);
-        if (owns_r) load_t_q(t_s, Ta, D, n0, b_end, d0);
-        __syncthreads();
-        if (do_g) q_update(qi_s, qj, wm, wn, lane, iacc);
-        if (owns_r) {
-          const float s = si_s[rl];
-#pragma unroll
-          for (int w = 0; w < QW; ++w) {
-            const uint32_t word = qi_s[rl][w];
-#pragma unroll
-            for (int b = 0; b < 4; ++b) {
-              const float h = __fmul_rn(
-                  static_cast<float>(static_cast<int8_t>((word >> (8 * b)) & 0xff)), s);
-#pragma unroll
-              for (int q = 0; q < 8; ++q)
-                racc[q] = fmaf(h, t_s[4 * w + b][rd + q], racc[q]);
-            }
-          }
-        }
-        __syncthreads();
-      }
-      if (do_g) {
-        // the row block's exact int32 tile product, scaled into fp32
-#pragma unroll
-        for (int mi = 0; mi < 4; ++mi)
-#pragma unroll
-          for (int ni = 0; ni < 4; ++ni)
-#pragma unroll
-            for (int e = 0; e < 4; ++e) {
-              const float ss = __fmul_rn(si_s[q_row(wm, mi, lane, e)],
-                                         sj[q_col(wn, ni, lane, e)]);
-              acc[mi][ni][e] = __fadd_rn(
-                  acc[mi][ni][e], __fmul_rn(__int2float_rn(iacc[mi][ni][e]), ss));
-            }
-      }
-    }
-    if (owns_r) store_r(R + static_cast<size_t>(a) * L * D, racc, L, D, i, d0);
-  }
-  float* Ga = G + static_cast<size_t>(a) * L * L;
-#pragma unroll
-  for (int mi = 0; mi < 4; ++mi)
-#pragma unroll
-    for (int ni = 0; ni < 4; ++ni)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int r = q_row(wm, mi, lane, e), c = q_col(wn, ni, lane, e);
-        const int gr = i * BL + r, gc = j * BL + c;
-        // a diagonal tile writes its lower half and mirrors it: exact symmetry
-        if (gr < L && gc < L && (!diag || r >= c))
-          store_g_pair(Ga, L, gr, gc, acc[mi][ni][e], false);
-      }
 }
 
 // ---------------------------------------------------------------------------
@@ -1179,6 +1018,378 @@ __global__ void __launch_bounds__(WNT, 1) gram_wgmma_kernel(
   }
 }
 
+// ---------------------------------------------------------------------------
+// gram_tri_q on Hopper's tensor cores: K-major copies, TMA + int8 wgmma
+// ---------------------------------------------------------------------------
+
+constexpr int QSTAGES = 4;            // ring depth
+constexpr int QCT = 128 * WCONS;      // consumer threads
+constexpr int RQ = 8;                 // R columns a pass: rows of T's K-major copy a box
+constexpr int QT_K = 64, QT_L = 256;  // the pre-pass's tile: positions x columns
+constexpr int QT_U = QT_K / 16;       // 16-byte pieces a pre-pass thread loads and stores
+static_assert(QT_L == 256 && QT_K % 16 == 0, "the pre-pass: a column a thread");
+
+struct alignas(1024) QStage {
+  int8_t hi[BL * 128];          // tile i: 128 rows of L x KS samples, as TMA swizzled them
+  int8_t hj[BL * 128];          // tile j (not loaded on a diagonal tile)
+  __nv_bfloat16 t[RQ * 128];    // T's K-major copy: the pass's RQ columns x KS samples
+  float si[BL], sj[BL];         // the stage's row block's scales of tile i's and j's rows
+};
+constexpr size_t kQSmem = QSTAGES * sizeof(QStage) + 1024;  // + alignment
+static_assert(sizeof(QStage) % 1024 == 0, "every stage on a swizzle atom");
+
+// Byte offset of logical byte x of a tile of kRow-byte rows as TMA's
+// kRow-byte swizzle stores it: the 16-byte chunk index XOR the 128-byte
+// line index (bits 4.. ^= bits 7..), over 3, 2 or 1 bits.
+template <int kRow>
+__device__ __forceinline__ int swizzled(int x) {
+  constexpr int mask = kRow / 16 - 1;
+  return x ^ (((x >> 7) & mask) << 4);
+}
+
+// Byte b of w, a signed int8 stored as q + 128 (w XOR 0x80 in each byte),
+// as an exact float on the full-rate pipes: the fp32 bits 2^23 + (q + 128),
+// less 2^23 + 128 (I2F runs at a quarter of the rate)
+__device__ __forceinline__ float biased_s8_to_f32(uint32_t w, int b) {
+  return __uint_as_float(__byte_perm(w, 0x4B000000u, 0x7540 | b)) - 8388736.0f;
+}
+// the bf16 in the low or high half of w, as fp32
+__device__ __forceinline__ float bf16_lo(uint32_t w) { return __uint_as_float(w << 16); }
+__device__ __forceinline__ float bf16_hi(uint32_t w) { return __uint_as_float(w & 0xFFFF0000u); }
+
+// Hk[a][l][nb bnp + t] = Hq[a][nb bn + t][l] and, from the blocks of the
+// first column tile, Tk[a][d][nb bnp + t] = T[a][nb bn + t][d], for t below
+// the rows of row block nb; 0 at the other positions: the K-major copies
+// gram_q_kernel reads (every row block a whole number of stages, every row
+// on 16 bytes).  A block transposes
+// QT_K positions x 256 columns of Hq through shared memory: each thread
+// loads QT_U 16-byte pieces of Hq's rows at once (single bytes where L % 16
+// != 0 or Hq is off 16 bytes), then stores QT_U 16-byte pieces of one row of
+// Hk, each gathered from a column of the tile.
+__global__ void __launch_bounds__(256) q_kmajor_kernel(
+    const int8_t* __restrict__ Hq, int8_t* __restrict__ Hk, const __nv_bfloat16* __restrict__ T,
+    __nv_bfloat16* __restrict__ Tk, int N, int L, int D, int bn, int bnp, int kp, bool vec) {
+  __shared__ __align__(16) uint8_t tile[QT_K][QT_L + 16];
+  const int a = blockIdx.z, k0 = blockIdx.x * QT_K, l0 = blockIdx.y * QT_L;
+  // the sample at position k of the copy, or -1 at a padding position
+  auto sample = [&](int k) {
+    const int nb = k / bnp, t = k - nb * bnp, n = nb * bn + t;
+    return k < kp && t < bn && n < N ? n : -1;
+  };
+  if (blockIdx.y == 0) {
+    for (int e = threadIdx.x; e < D * QT_K; e += 256) {
+      const int d = e / QT_K, k = k0 + e % QT_K, n = sample(k);
+      if (k < kp)
+        Tk[(static_cast<size_t>(a) * D + d) * kp + k] =
+            n >= 0 ? T[(static_cast<size_t>(a) * N + n) * D + d] : __float2bfloat16_rn(0.f);
+    }
+  }
+  const int8_t* Ha = Hq + static_cast<size_t>(a) * N * L;
+  uint4 piece[QT_U];
+#pragma unroll
+  for (int u = 0; u < QT_U; ++u) {  // position k0 + e / 16, columns l .. l + 15
+    const int e = threadIdx.x + 256 * u, l = l0 + 16 * (e % 16), n = sample(k0 + e / 16);
+    piece[u] = make_uint4(0, 0, 0, 0);
+    if (n >= 0 && l < L) {
+      const int8_t* src = Ha + static_cast<size_t>(n) * L + l;
+      if (vec) {
+        piece[u] = *reinterpret_cast<const uint4*>(src);
+      } else {
+        uint32_t w[4] = {0, 0, 0, 0};
+        for (int b = 0; b < 16 && l + b < L; ++b)
+          w[b / 4] |= static_cast<uint32_t>(static_cast<uint8_t>(src[b])) << (8 * (b % 4));
+        piece[u] = make_uint4(w[0], w[1], w[2], w[3]);
+      }
+    }
+  }
+#pragma unroll
+  for (int u = 0; u < QT_U; ++u) {
+    const int e = threadIdx.x + 256 * u;
+    *reinterpret_cast<uint4*>(&tile[e / 16][16 * (e % 16)]) = piece[u];
+  }
+  __syncthreads();
+  const int l = l0 + threadIdx.x;
+  if (l >= L) return;
+  int8_t* dst = Hk + (static_cast<size_t>(a) * L + l) * kp + k0;
+#pragma unroll
+  for (int u = 0; u < QT_U; ++u) {  // positions k0 + 16 u .. k0 + 16 u + 15 of row l
+    if (k0 + 16 * u >= kp) break;
+    uint32_t w[4] = {0, 0, 0, 0};
+#pragma unroll
+    for (int b = 0; b < 16; ++b)
+      w[b / 4] |= static_cast<uint32_t>(tile[16 * u + b][threadIdx.x]) << (8 * (b % 4));
+    *reinterpret_cast<uint4*>(dst + 16 * u) = make_uint4(w[0], w[1], w[2], w[3]);
+  }
+}
+
+// What R a block of the triangle owns (as in gram_f32_kernel): ni rows of
+// tile i from ri0 (slot j of the rows that nl blocks stage), then, off the
+// diagonal, nr - ni rows of tile j from rj0 (slot i).  Row q of that list
+// goes to the lanes (q / 8) parts .. + parts - 1 of consumer warp q % 8,
+// each taking len = KS / parts of a stage's samples, from p0, and every
+// column of the pass; this thread's row q is row `row` of tile i (from_i)
+// or j.
+struct QRWork {
+  int ni, ri0, rj0, nr, parts;
+  int q, row, p0, len;
+  bool from_i;
+};
+
+template <int KS>
+__device__ __forceinline__ QRWork q_r_work(int i, int j, int L, int warp, int lane) {
+  const int nl = (L + BL - 1) / BL, rpb = (BL + nl - 1) / nl;
+  QRWork w;
+  w.ri0 = min(j * rpb, BL);
+  w.ni = min(w.ri0 + rpb, BL) - w.ri0;
+  w.rj0 = min(i * rpb, BL);
+  w.nr = w.ni + (i == j ? 0 : min(w.rj0 + rpb, BL) - w.rj0);
+  w.parts = min(16, KS / 8);
+  while (w.parts > 1 && w.nr * w.parts > QCT) w.parts >>= 1;
+  w.q = (lane / w.parts) * (WCONS * 4) + warp;
+  w.from_i = w.q < w.ni;
+  w.row = w.from_i ? w.ri0 + w.q : w.rj0 + w.q - w.ni;
+  w.len = KS / w.parts;
+  w.p0 = (lane % w.parts) * w.len;
+  return w;
+}
+
+// One stage's R products: racc[dd] += (q s) T[., d0 + dd] over this thread's
+// share of the stage's samples, q from the swizzled K-major rows (each byte
+// converted once for all dw columns), s the row's scale of the stage's row
+// block, T from its K-major box (fp32 FMAs, as the plain version multiplies
+// the dequantized rows)
+template <int KS>
+__device__ __forceinline__ void q_r_stage(const QStage& sg, const QRWork& w, int dw,
+                                          float (&racc)[RQ]) {
+  if (w.q >= w.nr) return;
+  const int8_t* tile = w.from_i ? sg.hi : sg.hj;
+  const float s = w.from_i ? sg.si[w.row] : sg.sj[w.row];
+  for (int k = w.p0; k < w.p0 + w.len; k += 8) {
+    const uint2 v = *reinterpret_cast<const uint2*>(tile + swizzled<KS>(w.row * KS + k));
+    const uint32_t b0 = v.x ^ 0x80808080u, b1 = v.y ^ 0x80808080u;
+    float h[8];
+#pragma unroll
+    for (int b = 0; b < 8; ++b) h[b] = __fmul_rn(biased_s8_to_f32(b < 4 ? b0 : b1, b % 4), s);
+#pragma unroll
+    for (int dd = 0; dd < RQ; ++dd) {
+      if (dd >= dw) break;
+      const uint4 t = *reinterpret_cast<const uint4*>(&sg.t[dd * KS + k]);
+      const uint32_t tv[4] = {t.x, t.y, t.z, t.w};
+      float r = racc[dd];
+#pragma unroll
+      for (int b = 0; b < 8; ++b)
+        r = fmaf(h[b], b % 2 ? bf16_hi(tv[b / 2]) : bf16_lo(tv[b / 2]), r);
+      racc[dd] = r;
+    }
+  }
+}
+
+// A row block's exact int32 products scaled into the fp32 accumulators, in
+// the plain version's arithmetic: acc + float(prod) * (s_i * s_j), each
+// step rounded on its own (no FMA contraction)
+__device__ __forceinline__ void q_flush(float (&acc)[64], const int (&iacc)[64], const float* si,
+                                        const float* sj, int wg, int warp, int lane) {
+  const int r = wg * 64 + (warp % 4) * 16 + lane / 4;
+  const float s_lo = si[r], s_hi = si[r + 8];
+#pragma unroll
+  for (int v = 0; v < 64; v += 2) {
+    const float2 sc = *reinterpret_cast<const float2*>(&sj[(v >> 2) * 8 + (lane % 4) * 2]);
+    const float s = (v >> 1) & 1 ? s_hi : s_lo;
+    acc[v] = __fadd_rn(acc[v], __fmul_rn(__int2float_rn(iacc[v]), __fmul_rn(s, sc.x)));
+    acc[v + 1] = __fadd_rn(acc[v + 1], __fmul_rn(__int2float_rn(iacc[v + 1]), __fmul_rn(s, sc.y)));
+  }
+}
+
+// G = Hq^T Hq in int8 on the tensor cores, scaled per quantization tile, and
+// R = sum (q s) T, of the m agents' lower-triangular 128 x 128 tiles (i, j),
+// each stored with its mirror.  Persistent: block b takes tiles b, b +
+// gridDim.x, ... in the order (agent, tri_decode's triangle), so that the
+// producer fills the ring with the next tile's stages while the consumers
+// flush and store a tile.  qmap: Hk, the K-major copy of Hq, (m, L, kp) int8
+// in boxes of KS samples x 128 rows, a KS-byte swizzle; tmap: Tk, T's
+// K-major copy, (m, D, kp) bf16 in boxes of KS samples x tr = min(D, RQ)
+// rows.
+//
+// One producer warp: its lane 0 keeps the ring's TMA copies in flight; all
+// its lanes write each stage's scales (the next row block's fetched while
+// this one's stages go).  Two consumer warpgroups, 64 rows of a tile each:
+// the first stage of a row block starts the int32 sums anew (scale-d 0),
+// its last waits for them and flushes them into fp32; R's products of a
+// stage run on the CUDA cores while its wgmmas are in flight.
+template <int KS>
+__global__ void __launch_bounds__(WNT, 1) gram_q_kernel(
+    const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CUtensorMap tmap,
+    const float* __restrict__ S, float* __restrict__ G, float* __restrict__ R, int m, int N,
+    int L, int D, int bn, int bl, int bnp) {
+  extern __shared__ uint8_t q_smem[];
+  __shared__ __align__(8) uint64_t full[QSTAGES], empty[QSTAGES];
+  QStage* ring = reinterpret_cast<QStage*>(q_smem + ((1024 - smem_u32(q_smem) % 1024) % 1024));
+
+  const int nl = (L + BL - 1) / BL, ntri = nl * (nl + 1) / 2, tiles = m * ntri;
+  const int nnq = (N + bn - 1) / bn, nlq = (L + bl - 1) / bl, spb = bnp / KS, tr = min(D, RQ);
+  const int n_pass = (D + RQ - 1) / RQ;  // for a tile with R rows
+  const int warp = __shfl_sync(0xffffffffu, threadIdx.x / 32, 0), lane = threadIdx.x % 32;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < QSTAGES; ++s) {
+      mbar_init(&full[s], 1);             // the producer, with its TMA bytes
+      mbar_init(&empty[s], WCONS * 4);    // one lane of each consumer warp
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  int stage = 0, phase = 0;  // the ring slot taken next, and its parity
+  if (warp == WCONS * 4) {
+    // producer.  Lane e % 32 writes the scales of rows e = lane + 32 v:
+    // tile i's for e < 128, tile j's after
+    for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+      const int a = t / ntri;
+      int i, j;
+      tri_decode(t - a * ntri, i, j);
+      const bool diag = (i == j);
+      const QRWork rw = q_r_work<KS>(i, j, L, 0, 0);
+      int sc[8];
+#pragma unroll
+      for (int v = 0; v < 8; ++v) {
+        const int e = lane + 32 * v, col = e < BL ? i * BL + e : j * BL + e - BL;
+        sc[v] = col < L ? col / bl : -1;
+      }
+      const float* Sa = S + static_cast<size_t>(a) * nnq * nlq;
+      for (int pass = 0; pass < (rw.nr > 0 ? n_pass : 1); ++pass) {
+        // tile j for G on the first pass, for its R rows on later ones; T
+        // where the tile has R rows
+        const bool load_j = !diag && (pass == 0 || rw.nr > rw.ni);
+        const bool load_t = rw.nr > 0;
+        const uint32_t bytes = (load_j ? 2 : 1) * BL * KS + (load_t ? KS * tr * 2 : 0);
+        float cur[8], nxt[8];  // this row block's scales, and the next one's in flight
+#pragma unroll
+        for (int v = 0; v < 8; ++v) nxt[v] = sc[v] >= 0 ? __ldg(Sa + sc[v]) : 0.0f;
+        for (int nb = 0; nb < nnq; ++nb) {
+          const float* Sn = Sa + static_cast<size_t>(nb + 1 < nnq ? nb + 1 : nb) * nlq;
+#pragma unroll
+          for (int v = 0; v < 8; ++v) {
+            cur[v] = nxt[v];
+            nxt[v] = sc[v] >= 0 ? __ldg(Sn + sc[v]) : 0.0f;
+          }
+          for (int u = 0; u < spb; ++u) {
+            if (lane == 0) mbar_wait(&empty[stage], phase ^ 1);
+            __syncwarp();
+            QStage& sg = ring[stage];
+#pragma unroll
+            for (int v = 0; v < 8; ++v) (v < 4 ? sg.si : sg.sj)[lane + 32 * (v % 4)] = cur[v];
+            __syncwarp();  // the scales are written before lane 0's arrival releases them
+            if (lane == 0) {
+              const int k0 = nb * bnp + u * KS;
+              mbar_arrive_expect_tx(&full[stage], bytes);
+              tma_load_3d(sg.hi, &qmap, &full[stage], k0, i * BL, a);
+              if (load_j) tma_load_3d(sg.hj, &qmap, &full[stage], k0, j * BL, a);
+              if (load_t) tma_load_3d(sg.t, &tmap, &full[stage], k0, pass * RQ, a);
+            }
+            if (++stage == QSTAGES) stage = 0, phase ^= 1;
+          }
+        }
+      }
+    }
+    return;
+  }
+
+  // consumers: warpgroup wg owns tile rows wg * 64 .. wg * 64 + 63
+  const int wg = warp / 4;
+  int iacc[64];
+  float acc[64];
+#pragma unroll
+  for (int v = 0; v < 64; ++v) iacc[v] = 0;
+  for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+    const int a = t / ntri;
+    int i, j;
+    tri_decode(t - a * ntri, i, j);
+    const bool diag = (i == j);
+    const QRWork rw = q_r_work<KS>(i, j, L, warp, lane);
+#pragma unroll
+    for (int v = 0; v < 64; ++v) acc[v] = 0.0f;
+    for (int pass = 0; pass < (rw.nr > 0 ? n_pass : 1); ++pass) {
+      const int dw = min(RQ, D - pass * RQ);
+      float racc[RQ];
+#pragma unroll
+      for (int dd = 0; dd < RQ; ++dd) racc[dd] = 0.0f;
+      if (pass == 0) {
+        int held = -1;  // the slot whose products may still be in flight
+        for (int nb = 0; nb < nnq; ++nb) {
+          for (int u = 0; u < spb; ++u) {
+            const bool first = u == 0, last = u == spb - 1;  // of the row block
+            mbar_wait(&full[stage], phase);  // the stage has landed
+            const QStage& sg = ring[stage];
+            const uint32_t a0 = smem_u32(sg.hi) + wg * 64 * KS;
+            const uint32_t b0 = smem_u32(diag ? sg.hi : sg.hj);
+            wgmma_fence();
+#pragma unroll
+            for (int k = 0; k < KS / 32; ++k)
+              wgmma_m64n128k32_s8(iacc, kmajor_desc<KS>(a0 + 32 * k),
+                                  kmajor_desc<KS>(b0 + 32 * k), !(first && k == 0));
+            wgmma_commit();
+            wgmma_wait<1>();  // the previous stage's products are done: free its slot
+            mbar_arrive_if(&empty[held < 0 ? 0 : held], held >= 0 && lane == 0);
+            held = stage;
+            q_r_stage<KS>(sg, rw, dw, racc);  // while this stage's products run
+            if (last) {  // the row block's int32 sums into fp32, then its last slot
+              wgmma_wait<0>();
+              q_flush(acc, iacc, sg.si, diag ? sg.si : sg.sj, wg, warp, lane);
+              mbar_arrive_if(&empty[stage], lane == 0);
+              held = -1;
+            }
+            if (++stage == QSTAGES) stage = 0, phase ^= 1;
+          }
+        }
+      } else {
+        for (int s = 0; s < nnq * spb; ++s) {
+          mbar_wait(&full[stage], phase);
+          q_r_stage<KS>(ring[stage], rw, dw, racc);
+          mbar_arrive_if(&empty[stage], lane == 0);
+          if (++stage == QSTAGES) stage = 0, phase ^= 1;
+        }
+      }
+      // a row's parts summed over its lanes (a butterfly), stored by the first
+#pragma unroll
+      for (int dd = 0; dd < RQ; ++dd)
+        for (int off = 1; off < rw.parts; off <<= 1)
+          racc[dd] += __shfl_xor_sync(0xffffffffu, racc[dd], off);
+      if (rw.p0 == 0 && rw.q < rw.nr) {
+        const int l = (rw.from_i ? i : j) * BL + rw.row;
+        float* Rl = R + (static_cast<size_t>(a) * L + l) * D + pass * RQ;
+#pragma unroll
+        for (int dd = 0; dd < RQ; ++dd)
+          if (dd < dw && l < L) Rl[dd] = racc[dd];
+      }
+    }
+
+    // the tile and its mirror straight from the accumulators: each warp
+    // store fills whole 32-byte sectors (8 rows x 4 pairs of neighbouring
+    // columns of the tile, and the 4 x 8 they mirror to).  A diagonal tile
+    // stores its lower half and that half's mirror: exact symmetry.
+    float* Ga = G + static_cast<size_t>(a) * L * L;
+    const int r0 = i * BL + wg * 64 + (warp % 4) * 16 + lane / 4, c0 = j * BL + (lane % 4) * 2;
+    const bool pairs = !diag && L % 2 == 0;  // float2 stores on 8 bytes
+#pragma unroll
+    for (int v = 0; v < 64; v += 2) {
+      const int gr = r0 + ((v >> 1) & 1) * 8, gc = c0 + (v >> 2) * 8;
+      if (gr >= L) continue;
+      float* row = Ga + static_cast<size_t>(gr) * L;
+      if (pairs && gc + 1 < L) {
+        *reinterpret_cast<float2*>(row + gc) = make_float2(acc[v], acc[v + 1]);
+      } else {
+#pragma unroll
+        for (int e = 0; e < 2; ++e)
+          if (gc + e < L && (!diag || gr >= gc + e)) row[gc + e] = acc[v + e];
+      }
+#pragma unroll
+      for (int e = 0; e < 2; ++e)
+        if (gc + e < L && (!diag || gr > gc + e))
+          Ga[static_cast<size_t>(gc + e) * L + gr] = acc[v + e];
+    }
+  }
+}
+
 using TensorMapEncode = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
                                      const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
                                      const cuuint32_t*, CUtensorMapInterleave,
@@ -1213,6 +1424,18 @@ cudaError_t allow_dynamic_smem(size_t bytes) {
   err = cudaFuncSetAttribute(kKernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              static_cast<int>(bytes));
   if (err == cudaSuccess) done.fetch_or(bit, std::memory_order_relaxed);
+  return err;
+}
+
+// The current device's SM count, asked once per device and process
+cudaError_t sm_count(int* sms) {
+  static std::atomic<int> counts[64];  // 0: not asked yet
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < 64 && (*sms = counts[dev].load(std::memory_order_relaxed)) > 0) return cudaSuccess;
+  err = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess && dev < 64) counts[dev].store(*sms, std::memory_order_relaxed);
   return err;
 }
 
@@ -1262,23 +1485,24 @@ __global__ void pad_rows_kernel(PadRows a, PadRows b) {
   }
 }
 
-// A 3-D tensor map of a contiguous bf16 (m, N, width) array in boxes of
-// `box_w` columns x WK rows, 128-byte swizzle or none; false if the driver
-// refuses it.
-bool encode_map(CUtensorMap* map, const void* base, int m, int N, int width, int box_w,
+// A 3-D tensor map of a contiguous (m, rows, width) array of `type` in
+// boxes of box_w columns x box_rows rows, the given swizzle; false if the
+// driver refuses it.
+bool encode_map(CUtensorMap* map, CUtensorMapDataType type, int elem_bytes, const void* base,
+                int m, long long rows, long long width, int box_w, int box_rows,
                 CUtensorMapSwizzle swizzle) {
   const TensorMapEncode encode = tensor_map_encode();
-  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(width), static_cast<cuuint64_t>(N),
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(width), static_cast<cuuint64_t>(rows),
                               static_cast<cuuint64_t>(m)};
-  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(width) * 2,
-                                 static_cast<cuuint64_t>(N) * width * 2};
-  const cuuint32_t box[3] = {static_cast<cuuint32_t>(box_w), WK, 1};
+  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(width) * elem_bytes,
+                                 static_cast<cuuint64_t>(rows) * width * elem_bytes};
+  const cuuint32_t box[3] = {static_cast<cuuint32_t>(box_w), static_cast<cuuint32_t>(box_rows),
+                             1};
   const cuuint32_t unit[3] = {1, 1, 1};
   return encode != nullptr &&
-         encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base), dims, strides,
-                box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
-                CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) ==
-             CUDA_SUCCESS;
+         encode(map, type, 3, const_cast<void*>(base), dims, strides, box, unit,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 // gram_tri (m agents) or gram_dense (m = 1) in bf16 on the wgmma body.  Hp
@@ -1294,8 +1518,10 @@ int gram_wgmma(const void* H, void* Hp, const void* T, void* Tp, void* G, void* 
   const int Lp = (L + 7) / 8 * 8, Dp = (D + 7) / 8 * 8;
   CUtensorMap hmap, tmap;
   if ((Hp == H && L != Lp) || (Tp == T && D != Dp) || !aligned16(Hp, Tp) ||
-      !encode_map(&hmap, Hp, m, N, Lp, WBOX, CU_TENSOR_MAP_SWIZZLE_128B) ||
-      !encode_map(&tmap, Tp, m, N, Dp, 8, CU_TENSOR_MAP_SWIZZLE_NONE))
+      !encode_map(&hmap, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, Hp, m, N, Lp, WBOX, WK,
+                  CU_TENSOR_MAP_SWIZZLE_128B) ||
+      !encode_map(&tmap, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, Tp, m, N, Dp, 8, WK,
+                  CU_TENSOR_MAP_SWIZZLE_NONE))
     return static_cast<int>(cudaErrorInvalidValue);
   const auto st = static_cast<cudaStream_t>(stream);
   const size_t rows = static_cast<size_t>(m) * N;
@@ -1320,6 +1546,60 @@ int gram_wgmma(const void* H, void* Hp, const void* T, void* Tp, void* G, void* 
   const dim3 grid = kDense ? dim3(half, nl) : dim3(half * (nl / 2 + 1), m);
   gram_wgmma_kernel<kDense><<<grid, WNT, kWgSmem, st>>>(
       hmap, tmap, static_cast<float*>(G), static_cast<float*>(R), N, L, D);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The K-major copies of Hq (m, N, L) int8 into Hk (m, L, kp) and of T
+// (m, N, D) bf16 into Tk (m, D, kp), kp = nnq bnp (q_kmajor_kernel), on the
+// caller's stream
+cudaError_t q_kmajor(const void* Hq, void* Hk, const void* T, void* Tk, int m, int N, int L,
+                     int D, int bn, int bnp, int kp, cudaStream_t st) {
+  const bool vec = L % 16 == 0 && aligned16(Hq);
+  const dim3 grid((kp + QT_K - 1) / QT_K, (L + QT_L - 1) / QT_L, m);
+  q_kmajor_kernel<<<grid, 256, 0, st>>>(
+      static_cast<const int8_t*>(Hq), static_cast<int8_t*>(Hk),
+      static_cast<const __nv_bfloat16*>(T), static_cast<__nv_bfloat16*>(Tk), N, L, D, bn, bnp,
+      kp, vec);
+  return cudaGetLastError();
+}
+
+// The plan of the K-major copies, as kernel.py's q_layout makes it: ks a
+// stage of 128, 64 or 32 samples, bnp a multiple of it that holds a row
+// block's rows, kp = nnq bnp below 2^31
+bool q_layout_ok(int N, int bn, int ks, int bnp) {
+  const long long kp = static_cast<long long>((N + bn - 1) / bn) * bnp;
+  return (ks == 128 || ks == 64 || ks == 32) && bnp % ks == 0 && bnp >= std::min(bn, N) &&
+         kp < (1ll << 31);
+}
+
+// gram_tri_q on the tensor-core body: the K-major copies of Hq and T into
+// Hk and Tk, then the Gram grid; cudaErrorInvalidValue before anything
+// launches where a tensor map is refused
+template <int KS>
+int gram_q(const void* Hq, void* Hk, const void* S, const void* T, void* Tk, void* G, void* R,
+           int m, int N, int L, int D, int bn, int bl, int bnp, cudaStream_t st) {
+  const int kp = (N + bn - 1) / bn * bnp;
+  const long long tiles = static_cast<long long>(tri_grid(m, L).x) * m;
+  if (tiles >= (1ll << 31)) return static_cast<int>(cudaErrorInvalidValue);
+  CUtensorMap qmap, tmap;
+  const CUtensorMapSwizzle swizzle = KS == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
+                                     : KS == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
+                                                : CU_TENSOR_MAP_SWIZZLE_32B;
+  if (!aligned16(Hk, Tk) ||
+      !encode_map(&qmap, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, Hk, m, L, kp, KS, BL, swizzle) ||
+      !encode_map(&tmap, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, Tk, m, D, kp, KS,
+                  std::min(D, RQ), CU_TENSOR_MAP_SWIZZLE_NONE))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = q_kmajor(Hq, Hk, T, Tk, m, N, L, D, bn, bnp, kp, st);
+  if (err == cudaSuccess) err = allow_dynamic_smem<gram_q_kernel<KS>>(kQSmem);
+  int sms = 0;
+  if (err == cudaSuccess) err = sm_count(&sms);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  // one block an SM (its shared memory), each walking tiles
+  const unsigned blocks = static_cast<unsigned>(std::min<long long>(tiles, sms));
+  gram_q_kernel<KS><<<blocks, WNT, kQSmem, st>>>(
+      qmap, tmap, static_cast<const float*>(S), static_cast<float*>(G), static_cast<float*>(R),
+      m, N, L, D, bn, bl, bnp);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1397,14 +1677,27 @@ int gram_fused_chunk_bf16(const void* X, const void* W, const void* b, const voi
                                     act, stream);
 }
 
-int gram_tri_q(const void* Hq, const void* S, const void* T, void* G, void* R, int m,
-               int N, int L, int D, int bn, int bl, void* stream) {
+// Hk, Tk: the K-major copies' buffers, m L kp bytes and m D kp bf16 values,
+// kp = ceil(N / bn) bnp; ks, bnp: kernel.py's q_layout
+int gram_tri_q(const void* Hq, void* Hk, const void* S, const void* T, void* Tk, void* G,
+               void* R, int m, int N, int L, int D, int bn, int bl, int ks, int bnp,
+               void* stream) {
   cudaGetLastError();
-  gram_tri_q_kernel<<<tri_grid(m, L), NT, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int8_t*>(Hq), static_cast<const float*>(S),
-      static_cast<const __nv_bfloat16*>(T), static_cast<float*>(G), static_cast<float*>(R),
-      N, L, D, bn, bl);
-  return static_cast<int>(cudaGetLastError());
+  if (!q_layout_ok(N, bn, ks, bnp)) return static_cast<int>(cudaErrorInvalidValue);
+  const auto st = static_cast<cudaStream_t>(stream);
+  if (ks == 128) return gram_q<128>(Hq, Hk, S, T, Tk, G, R, m, N, L, D, bn, bl, bnp, st);
+  if (ks == 64) return gram_q<64>(Hq, Hk, S, T, Tk, G, R, m, N, L, D, bn, bl, bnp, st);
+  return gram_q<32>(Hq, Hk, S, T, Tk, G, R, m, N, L, D, bn, bl, bnp, st);
+}
+
+// The K-major copies alone (gram_tri_q's first grid), for checks and
+// timing
+int gram_q_kmajor(const void* Hq, void* Hk, const void* T, void* Tk, int m, int N, int L, int D,
+                  int bn, int ks, int bnp, void* stream) {
+  cudaGetLastError();
+  if (!q_layout_ok(N, bn, ks, bnp)) return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(q_kmajor(Hq, Hk, T, Tk, m, N, L, D, bn, bnp, (N + bn - 1) / bn * bnp,
+                                   static_cast<cudaStream_t>(stream)));
 }
 
 // Hp, Tp: H and T themselves where their rows are a multiple of 8 values on
@@ -1419,9 +1712,10 @@ int gram_dense_bf16_wgmma(const void* H, void* Hp, const void* T, void* Tp, void
   return gram_wgmma<true>(H, Hp, T, Tp, G, R, 1, N, L, D, stream);
 }
 
-// dynamic shared memory of a gram_wgmma_kernel and a gram_f32_kernel block,
-// in bytes
+// dynamic shared memory of a gram_wgmma_kernel, a gram_f32_kernel and a
+// gram_q_kernel block, in bytes
 int gram_wgmma_smem_bytes() { return static_cast<int>(kWgSmem); }
 int gram_f32_smem_bytes() { return static_cast<int>(kF32Smem); }
+int gram_q_smem_bytes() { return static_cast<int>(kQSmem); }
 
 }  // extern "C"

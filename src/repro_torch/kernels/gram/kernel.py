@@ -21,6 +21,11 @@ call on the card launched.
 fp32 the FMA body on the CUDA cores, bf16 the tensor-core body (TMA +
 wgmma), which reads H and T from ``h_buffer`` and ``t_buffer``;
 ``LAST_GRAM`` records which body the last call on the card ran.
+
+``gram_tri_q`` runs the int8 tensor-core body (TMA + int8 wgmma), which
+takes its operands K-major: it first writes K-major copies of Hq and T
+(``q_layout``, ``q_kmajor``; ``ref.q_kmajor_ref`` is their plain version)
+into buffers of its own.
 """
 
 from __future__ import annotations
@@ -38,6 +43,7 @@ from repro_torch.kernels.gram.ref import (
     gram_fused_ref,
     gram_ref,
     gram_tri_q_ref,
+    q_kmajor_ref,
 )
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "gram.cu"
@@ -51,8 +57,8 @@ FUSED_WORKSPACE_BYTES = 256 * 2**20
 # launches: chunks, sample rows its hidden-layer grids covered (N when H is
 # computed once), and its workspace's bytes
 LAST_FUSED = {"chunks": 0, "hidden_rows": 0, "workspace_bytes": 0}
-# which body the last gram_tri or gram_dense call on the card ran, recorded
-# where it launches ("wgmma" or "fma", see gram_body)
+# which body the last gram_tri, gram_dense or gram_tri_q call on the card
+# ran, recorded where it launches ("wgmma" or "fma", see gram_body)
 LAST_GRAM = {"kernel": None, "body": None}
 
 _P = ctypes.c_void_p
@@ -85,8 +91,15 @@ def library() -> ctypes.CDLL:
     for fn in (lib.gram_wgmma_smem_bytes, lib.gram_f32_smem_bytes):
         fn.argtypes = []
         fn.restype = _I
-    lib.gram_tri_q.argtypes = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]
+    # Hq, its K-major buffer, scales, T, its K-major buffer, G, R; m, N, L,
+    # D, block_n, block_l, the stage and the padded block (q_layout)
+    lib.gram_tri_q.argtypes = [_P] * 7 + [_I] * 8 + [_P]
     lib.gram_tri_q.restype = _I
+    # Hq, Hk, T, Tk; m, N, L, D, block_n, the stage, the padded block
+    lib.gram_q_kmajor.argtypes = [_P] * 4 + [_I] * 7 + [_P]
+    lib.gram_q_kmajor.restype = _I
+    lib.gram_q_smem_bytes.argtypes = []
+    lib.gram_q_smem_bytes.restype = _I
     return lib
 
 
@@ -118,10 +131,11 @@ def fused_chunks(m: int, N: int, L: int, precision: str):
 
 
 def gram_body(dtype: torch.dtype) -> str:
-    """The body a Gram launch of ``dtype`` runs: ``"wgmma"`` for bf16 (TMA
-    copies of H into swizzled shared memory, wgmma on the tensor cores),
-    ``"fma"`` for fp32 (IEEE fp32 FMAs on the CUDA cores, no TF32)."""
-    return "wgmma" if dtype == torch.bfloat16 else "fma"
+    """The body a Gram launch of ``dtype`` runs: ``"wgmma"`` for bf16 and
+    int8 (TMA copies into swizzled shared memory, wgmma on the tensor
+    cores), ``"fma"`` for fp32 (IEEE fp32 FMAs on the CUDA cores, no
+    TF32)."""
+    return "fma" if dtype == torch.float32 else "wgmma"
 
 
 def h_buffer(H: torch.Tensor) -> torch.Tensor:
@@ -248,6 +262,59 @@ def gram_fused(X: torch.Tensor, W: torch.Tensor, b: torch.Tensor,
     return G, R
 
 
+@functools.lru_cache(maxsize=256)
+def q_layout(N: int, block_n: int) -> tuple[int, int]:
+    """(stage, bnp): the int8 body's stage depth in samples and the padded
+    length of each row block in Hq's K-major copy.
+
+    A stage is one row of a 128-, 64- or 32-byte TMA swizzle (int8 wgmma
+    steps through 32 samples at a time), and every row block is padded
+    with zero samples to ``bnp``, a whole number of stages, so that no stage
+    crosses a row-block boundary.  The least padding is to a multiple of 32
+    samples; the deepest stage is taken whose padding adds at most a
+    quarter to that (fewer, deeper stages cost the ring less a sample):
+    ``block_n`` 512 pads nothing, 104 pads to one 128-sample stage, 40 to
+    one of 64, 96 to three of 32, 8 to one of 32.  The copy then holds at
+    most about twice Hq's bytes from 16 rows a row block up."""
+    rows = min(block_n, N)
+    least = -(-rows // 32) * 32
+    for stage in (128, 64, 32):
+        bnp = -(-rows // stage) * stage
+        if 4 * bnp <= 5 * least:
+            return stage, bnp
+    raise AssertionError("unreachable: 32-sample stages pad the least")
+
+
+def q_kmajor(Hq: torch.Tensor, T: torch.Tensor, block_n: int):
+    """The K-major copies ``gram_tri_q`` writes before its Gram grid (its
+    first grid, launched alone; not counted in ``LAUNCHES``): Hq (m, N, L)
+    int8 -> Hk (m, L, kp) and T (m, N, D) bf16 -> Tk (m, D, kp), kp =
+    ceil(N / block_n) * bnp, each row block's samples padded with zero
+    samples to ``bnp`` (``q_layout``).  Returns (Hk, Tk).  CPU tensors take
+    ``ref.q_kmajor_ref``."""
+    if not 1 <= block_n <= MAX_INT8_BLOCK_N:
+        raise ValueError(
+            f"block_n must be in [1, {MAX_INT8_BLOCK_N}], got {block_n}")
+    m, N, L = Hq.shape
+    stage, bnp = q_layout(N, block_n)
+    if on_cpu("Gram", Hq, T):
+        return q_kmajor_ref(Hq, block_n, bnp), q_kmajor_ref(T, block_n, bnp)
+    check("Hq", Hq, 3, (torch.int8,))
+    check("T", T, 3, (torch.bfloat16,))
+    D = T.shape[-1]
+    if T.shape[:2] != (m, N):
+        raise ValueError(f"T shape {tuple(T.shape)} does not match Hq "
+                         f"{tuple(Hq.shape)}")
+    _check_sizes(m, N, L, D)
+    kp = -(-N // block_n) * bnp
+    Hk = torch.empty((m, L, kp), dtype=torch.int8, device=Hq.device)
+    Tk = torch.empty((m, D, kp), dtype=T.dtype, device=Hq.device)
+    raise_on(library().gram_q_kmajor(
+        Hq.data_ptr(), Hk.data_ptr(), T.data_ptr(), Tk.data_ptr(), m, N, L,
+        D, block_n, stage, bnp, raw_stream(Hq)), "gram_q_kmajor")
+    return Hk, Tk
+
+
 def gram_tri_q(Hq: torch.Tensor, scales: torch.Tensor, T: torch.Tensor, *,
                block_n: int, block_l: int):
     """int8 statistics for all m agents in one launch, from quantized H.
@@ -256,7 +323,9 @@ def gram_tri_q(Hq: torch.Tensor, scales: torch.Tensor, T: torch.Tensor, *,
     fp32, one per quantization tile; T: (m, N, D) bf16.  Returns
     (G (m, L, L) fp32, exactly symmetric, R (m, L, D) fp32).  ``block_n``
     may be at most ``MAX_INT8_BLOCK_N`` (1040): above it an int32 tile sum
-    can exceed 2^24 and would round on its way to fp32."""
+    can exceed 2^24 and would round on its way to fp32.  On the card the
+    call first writes K-major copies of Hq and T into buffers of its own
+    (``q_kmajor``), then runs its Gram grid on them."""
     if not 1 <= block_n <= MAX_INT8_BLOCK_N or block_l < 1:
         raise ValueError(
             f"int8 Gram needs 1 <= block_n <= {MAX_INT8_BLOCK_N} (exact "
@@ -277,13 +346,18 @@ def gram_tri_q(Hq: torch.Tensor, scales: torch.Tensor, T: torch.Tensor, *,
             f"{tuple(scales.shape)} (want {want}), T {tuple(T.shape)}"
         )
     _check_sizes(m, N, L, D)
+    stage, bnp = q_layout(N, block_n)
+    kp = -(-N // block_n) * bnp
     G = torch.empty((m, L, L), dtype=torch.float32, device=Hq.device)
     R = torch.empty((m, L, D), dtype=torch.float32, device=Hq.device)
-    stream = torch.cuda.current_stream(Hq.device).cuda_stream
+    Hk = torch.empty((m, L, kp), dtype=torch.int8, device=Hq.device)
+    Tk = torch.empty((m, D, kp), dtype=T.dtype, device=Hq.device)
     raise_on(library().gram_tri_q(
-        Hq.data_ptr(), scales.data_ptr(), T.data_ptr(), G.data_ptr(),
-        R.data_ptr(), m, N, L, D, block_n, block_l, stream), "gram_tri_q")
+        Hq.data_ptr(), Hk.data_ptr(), scales.data_ptr(), T.data_ptr(),
+        Tk.data_ptr(), G.data_ptr(), R.data_ptr(), m, N, L, D, block_n,
+        block_l, stage, bnp, raw_stream(Hq)), "gram_tri_q")
     LAUNCHES["gram_tri_q"] += 1
+    LAST_GRAM.update(kernel="gram_tri_q", body=gram_body(Hq.dtype))
     return G, R
 
 

@@ -133,3 +133,21 @@ def gram_tri_q_ref(Hq: torch.Tensor, scales: torch.Tensor, T: torch.Tensor,
         G = G + (q.mT @ q) * (s[:, :, None] * s[:, None, :])
         R = R + (q * s[:, None, :]).mT @ Tf[:, n0:n0 + block_n]
     return G, R
+
+
+def q_kmajor_ref(Hq: torch.Tensor, block_n: int, bnp: int) -> torch.Tensor:
+    """Plain version of the int8 kernel's K-major copies.  Hq (m, N, L) ->
+    (m, L, ceil(N / block_n) * bnp): row block nb's samples at positions
+    [nb * bnp, nb * bnp + rows) of each row, zeros up to (nb + 1) * bnp.
+    ``bnp`` holds a row block: at least min(block_n, N).  T (m, N, D)
+    takes the same layout, (m, D, ...), as ``q_kmajor_ref(T, ...)``."""
+    m, N, L = Hq.shape
+    nn = -(-N // block_n)
+    if bnp < min(block_n, N):
+        raise ValueError(f"bnp {bnp} does not hold a row block of "
+                         f"{min(block_n, N)} samples")
+    out = torch.zeros((m, L, nn * bnp), dtype=Hq.dtype, device=Hq.device)
+    for nb, n0 in enumerate(range(0, N, block_n)):
+        rows = min(block_n, N - n0)
+        out[:, :, nb * bnp:nb * bnp + rows] = Hq[:, n0:n0 + rows].mT
+    return out

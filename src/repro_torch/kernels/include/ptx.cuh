@@ -1,9 +1,9 @@
 // PTX wrappers shared by the tensor-core kernels (gram/csrc/gram.cu,
 // swa/csrc/swa.cu): cp.async copies into shared memory, ldmatrix fragment
 // loads and the bf16 mma.sync; for Hopper's own path (sm_90a), mbarriers,
-// TMA tile loads and the bf16 wgmma.  _build.py compiles every source with
-// this directory on the include path and hashes these headers into each
-// library's name, so a change here rebuilds both.
+// TMA tile loads and the bf16 and int8 wgmma.  _build.py compiles every
+// source with this directory on the include path and hashes these headers
+// into each library's name, so a change here rebuilds both.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -122,7 +122,7 @@ __device__ __forceinline__ void named_bar_sync(int id, int threads) {
 // --- wgmma: a warpgroup (4 warps) multiplies from shared memory ----------
 
 // Matrix descriptor: start address, leading and stride byte offsets (16-byte
-// units) and the swizzle mode (0 none, 1 128-byte).
+// units) and the layout (0 no swizzle; 1, 2, 3: 128-, 64-, 32-byte swizzle).
 __device__ __forceinline__ uint64_t wgmma_desc(uint32_t addr, uint32_t lbo, uint32_t sbo,
                                                uint32_t swizzle) {
   return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
@@ -178,6 +178,50 @@ __device__ __forceinline__ void wgmma_m64n8k16_mn(float (&d)[4], uint64_t da, ui
       "{%0, %1, %2, %3}, %4, %5, p, 1, 1, 1, 1;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "l"(da), "l"(db), "r"(1));
+}
+
+// K-major operand tiles as TMA writes them with a swizzle of kRow bytes
+// (128, 64 or 32): rows of kRow bytes along k, 8 rows to a swizzle atom of
+// 8 kRow bytes, the atoms SBO = 8 kRow apart; a k = 32 step of 8-bit values
+// starts 32 bytes further along the rows (the hardware applies the swizzle
+// to the address it computes, the tile on a 1024-byte boundary).  The
+// descriptor's layout field: 1 = 128-byte, 2 = 64-byte, 3 = 32-byte swizzle.
+template <int kRow>
+__device__ __forceinline__ uint64_t kmajor_desc(uint32_t addr) {
+  static_assert(kRow == 128 || kRow == 64 || kRow == 32, "a TMA swizzle span");
+  constexpr uint32_t layout = kRow == 128 ? 1 : kRow == 64 ? 2 : 3;
+  return wgmma_desc(addr, 16, 8 * kRow, layout);
+}
+
+// d (64 x 128 int32, the warpgroup's accumulator fragment, laid out as the
+// fp32 one) = a b + (accumulate ? d : 0), k = 32, s8 operands, both K-major
+// in shared memory (8-bit types have no transpose)
+__device__ __forceinline__ void wgmma_m64n128k32_s8(int (&d)[64], uint64_t da, uint64_t db,
+                                                    int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      " %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23,"
+      " %24, %25, %26, %27, %28, %29, %30, %31,"
+      " %32, %33, %34, %35, %36, %37, %38, %39,"
+      " %40, %41, %42, %43, %44, %45, %46, %47,"
+      " %48, %49, %50, %51, %52, %53, %54, %55,"
+      " %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]),
+        "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]),
+        "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]), "+r"(d[16]), "+r"(d[17]),
+        "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]),
+        "+r"(d[30]), "+r"(d[31]), "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]),
+        "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]), "+r"(d[40]), "+r"(d[41]),
+        "+r"(d[42]), "+r"(d[43]), "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]),
+        "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]),
+        "+r"(d[54]), "+r"(d[55]), "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]),
+        "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
+      : "l"(da), "l"(db), "r"(accumulate));
 }
 
 // true when every pointer is 16-byte aligned (the vector and cp.async paths)

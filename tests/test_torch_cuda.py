@@ -187,10 +187,18 @@ def test_gram_fused_chunk_refuses_another_workspace_row_width(gen, precision):
     (3, 1000, 300, 3, 512, 128),  # ragged: block_n does not divide N
     (2, 520, 260, 17, 40, 32),   # block_l = 32 inside the 128 tile, D > 16
     (1, 333, 129, 2, 1040, 64),  # the largest exact block_n
+    (2, 500, 300, 3, 40, 128),   # block_n not a multiple of a stage: 64-sample stages
+    (2, 700, 260, 3, 104, 64),   # ... padded to one 128-sample stage
+    (2, 1, 300, 3, 8, 32),       # N = 1: one sample in a 32-sample stage
+    (2, 1000, 300, 3, 512, 32),  # L 300 at block_l 32 and 64
+    (2, 1000, 300, 3, 512, 64),
+    (1, 600, 200, 17, 96, 64),   # D 17: two passes of R, 32-sample stages
+    (9, 300, 140, 3, 104, 128),  # m 9
 ])
 def test_gram_tri_q_matches_plain(gen, m, N, L, D, bn, bl):
-    """Same Hq/scales into both: the int32 tile products are exact, only
-    the fp32 order of R differs (G is bitwise in practice)."""
+    """Same Hq/scales into both: the int32 tile products are exact and G is
+    scaled into fp32 in the plain version's order, so G equals it bit for
+    bit; only the fp32 order of R differs."""
     H = torch.randn(m, N, L, device="cuda", generator=gen) / N**0.5
     T = torch.randn(m, N, D, device="cuda", generator=gen).bfloat16()
     Hq, scales = ref.quantize_tiles(H, bn, bl, gen)
@@ -199,8 +207,67 @@ def test_gram_tri_q_matches_plain(gen, m, N, L, D, bn, bl):
     torch.cuda.synchronize()
     Gr, Rr = ref.gram_tri_q_ref(Hq, scales, T, bn, bl)
     assert kernel.LAUNCHES["gram_tri_q"] == before + 1
+    assert kernel.LAST_GRAM == {"kernel": "gram_tri_q", "body": "wgmma"}
     assert torch.equal(G, G.mT)
+    assert torch.equal(G, Gr)
     assert _rel(G, Gr) <= TOL["fp32"] and _rel(R, Rr) <= TOL["fp32"]
+
+
+@pytest.mark.parametrize("m,N,L,D,bn", [(1, 1, 1, 1, 8), (2, 1000, 300, 3, 512),
+                                        (2, 520, 261, 17, 40),
+                                        (3, 700, 130, 8, 104),
+                                        (1, 333, 129, 2, 1040),
+                                        (2, 100, 33, 3, 1)])
+def test_q_kmajor_matches_plain(gen, m, N, L, D, bn):
+    """The int8 body's K-major copies of Hq and T equal their plain layout
+    byte for byte: each row block's samples, then zeros up to the padded
+    length (L % 16 != 0 takes the pre-pass's byte loads)."""
+    Hq = torch.randint(-127, 128, (m, N, L), device="cuda", generator=gen,
+                       dtype=torch.int8)
+    T = torch.randn(m, N, D, device="cuda", generator=gen).bfloat16()
+    bnp = kernel.q_layout(N, bn)[1]
+    Hk, Tk = kernel.q_kmajor(Hq, T, bn)
+    torch.cuda.synchronize()
+    assert torch.equal(Hk, ref.q_kmajor_ref(Hq, bn, bnp))
+    assert torch.equal(Tk, ref.q_kmajor_ref(T, bn, bnp))
+
+
+def test_q_kmajor_reads_hq_off_16_bytes(gen):
+    """A view of Hq one byte past its buffer's start takes the byte loads
+    (L % 16 == 0 otherwise takes 16-byte ones)."""
+    buf = torch.randint(-127, 128, (2 * 64 * 128 + 1,), device="cuda",
+                        generator=gen, dtype=torch.int8)
+    Hq = buf[1:].view(2, 64, 128)
+    T = torch.randn(2, 64, 3, device="cuda", generator=gen).bfloat16()
+    Hk, _ = kernel.q_kmajor(Hq, T, 64)
+    torch.cuda.synchronize()
+    assert torch.equal(Hk, ref.q_kmajor_ref(Hq, 64, kernel.q_layout(64, 64)[1]))
+
+
+def test_gram_tri_q_entry_refuses_another_layout(gen):
+    """The C entry checks the plan it is handed (a stage of 128, 64 or 32
+    samples that divides the padded block, which holds a row block) and
+    launches nothing where it does not hold."""
+    m, N, L, D, bn, bl = 1, 100, 64, 3, 40, 32
+    Hq = torch.zeros(m, N, L, dtype=torch.int8, device="cuda")
+    s = torch.ones(m, 3, 2, device="cuda")
+    T = torch.zeros(m, N, D, dtype=torch.bfloat16, device="cuda")
+    G = torch.empty(m, L, L, device="cuda")
+    R = torch.empty(m, L, D, device="cuda")
+    Hk = torch.empty(m * L * 3 * 128, dtype=torch.int8, device="cuda")
+    Tk = torch.empty(m * D * 3 * 128, dtype=torch.bfloat16, device="cuda")
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def call(ks, bnp):
+        return kernel.library().gram_tri_q(
+            Hq.data_ptr(), Hk.data_ptr(), s.data_ptr(), T.data_ptr(),
+            Tk.data_ptr(), G.data_ptr(), R.data_ptr(), m, N, L, D, bn, bl, ks,
+            bnp, stream)
+
+    for ks, bnp in [(16, 64), (64, 96), (32, 32), (128, 0)]:
+        assert call(ks, bnp) != 0, (ks, bnp)
+    assert call(*kernel.q_layout(N, bn)) == 0
+    torch.cuda.synchronize()
 
 
 @pytest.mark.parametrize("precision", ["fp32", "bf16"])

@@ -367,6 +367,132 @@ def test_int8_block_n_limit_raises():
                       precision="int8")
 
 
+# ------------------------------------------- the int8 body's K-major copy
+
+# (m, N, L, D, block_n, block_l): a stage-multiple block_n, ones that are
+# not (40, 104), N = 1, L % 4 != 0, D > 16, the largest exact block_n
+KMAJOR_CASES = [(2, 96, 48, 3, 32, 32), (2, 500, 130, 3, 40, 32),
+                (1, 333, 129, 2, 1040, 64), (2, 700, 60, 17, 104, 64),
+                (3, 1, 20, 3, 8, 8), (2, 1000, 70, 3, 512, 128)]
+
+
+def _kmajor_case(m, N, L, D, bn, bl):
+    H, T = _draw(N + L + bn, (m, N, L), (m, N, D))
+    Hq, scales = tref.quantize_tiles(torch.from_numpy(H / np.sqrt(N)), bn, bl,
+                                     torch.Generator().manual_seed(bn))
+    stage, bnp = tkernel.q_layout(N, bn)
+    return Hq, scales, torch.from_numpy(T), stage, bnp
+
+
+@pytest.mark.parametrize("m,N,L,D,bn,bl", KMAJOR_CASES)
+def test_q_kmajor_ref_holds_each_row_block_then_zeros(m, N, L, D, bn, bl):
+    """Row block nb's samples sit at positions nb * bnp .. of every row of
+    L, in order, and every padded position holds an exact 0."""
+    Hq, _, _, stage, bnp = _kmajor_case(m, N, L, D, bn, bl)
+    Hk = tref.q_kmajor_ref(Hq, bn, bnp)
+    nn = -(-N // bn)
+    assert Hk.shape == (m, L, nn * bnp) and Hk.dtype == torch.int8
+    for nb in range(nn):
+        rows = min(bn, N - nb * bn)
+        block = Hk[:, :, nb * bnp:(nb + 1) * bnp]
+        assert torch.equal(block[:, :, :rows], Hq[:, nb * bn:nb * bn + rows].mT)
+        assert not block[:, :, rows:].any()
+
+
+@pytest.mark.parametrize("m,N,L,D,bn,bl", KMAJOR_CASES)
+def test_gram_tri_q_ref_from_the_kmajor_copy_is_the_same(m, N, L, D, bn, bl):
+    """What the int8 body computes from the K-major copy: per padded row
+    block, the int products of whole stages, zero samples included, scaled
+    as the plain version scales them.  G equals ``gram_tri_q_ref`` on Hq bit
+    for bit (the products are exact); R too from each block's own samples,
+    and to fp32 roundoff from the padded block (the CPU's matrix product
+    sums a longer k in another blocking: 7e-7 at (2, 1000, 70, 3))."""
+    Hq, scales, T, stage, bnp = _kmajor_case(m, N, L, D, bn, bl)
+    Hk = tref.q_kmajor_ref(Hq, bn, bnp)
+    cols = torch.arange(L) // bl
+    Tf = torch.nn.functional.pad(T.bfloat16().float(), (0, 0, 0, bnp))
+    G = torch.zeros((m, L, L))
+    R = torch.zeros((m, L, D))
+    R_padded = torch.zeros((m, L, D))
+    for nb in range(-(-N // bn)):
+        rows = min(bn, N - nb * bn)
+        q = Hk[:, :, nb * bnp:(nb + 1) * bnp].float()    # (m, L, bnp)
+        s = scales[:, nb][:, cols]
+        G = G + (q @ q.mT) * (s[:, :, None] * s[:, None, :])
+        qs = q * s[:, :, None]
+        R = R + qs[:, :, :rows] @ Tf[:, nb * bn:nb * bn + rows]
+        # the padded positions meet the next block's T, as in the kernel
+        R_padded = R_padded + qs @ Tf[:, nb * bn:nb * bn + bnp]
+    Gr, Rr = tref.gram_tri_q_ref(Hq, scales, T, bn, bl)
+    assert torch.equal(G, Gr) and torch.equal(R, Rr)
+    np.testing.assert_allclose(R_padded.numpy(), Rr.numpy(), rtol=0,
+                               atol=1e-6 * float(Rr.abs().max()))
+
+
+@pytest.mark.parametrize("N,block_n", [(1, 1), (1, 512), (2048, 512),
+                                       (1000, 512), (500, 40), (700, 104),
+                                       (96, 32), (333, 1040), (8192, 8),
+                                       (300, 300), (160, 160), (2000, 16)])
+def test_q_layout_pads_each_row_block_to_whole_stages(N, block_n):
+    """A stage of 128, 64 or 32 samples; the padded block a whole number of
+    stages that holds a row block; at most a quarter more than the least
+    padding (to 32 samples), and no stage deeper than that allows."""
+    stage, bnp = tkernel.q_layout(N, block_n)
+    rows = min(block_n, N)
+    least = -(-rows // 32) * 32
+    assert stage in (128, 64, 32) and bnp % stage == 0 and bnp >= rows
+    assert bnp == -(-rows // stage) * stage and 4 * bnp <= 5 * least
+    deeper = [s for s in (128, 64, 32) if s > stage]
+    assert all(4 * (-(-rows // s) * s) > 5 * least for s in deeper)
+    if rows >= 16:
+        assert bnp <= 2 * rows
+
+
+def test_q_layout_of_the_main_path_pads_nothing():
+    """Phase 4's int8 stream (block_n 512 at N 2048 a batch, 8192 at full):
+    128-sample stages, and the copy is Hq's size."""
+    for N in (2048, 8192):
+        assert tkernel.q_layout(N, tops.resolve_block_n(N, 512)) == (128, 512)
+
+
+@pytest.mark.parametrize("m,N,L,D,bn,bl", KMAJOR_CASES[:3])
+def test_q_kmajor_of_cpu_tensors_is_the_plain_layout(m, N, L, D, bn, bl):
+    """Hq's copy, and T's (m, D, kp) in the same positions, zeros between."""
+    Hq, _, T, _, bnp = _kmajor_case(m, N, L, D, bn, bl)
+    T = T.bfloat16()
+    Hk, Tk = tkernel.q_kmajor(Hq, T, bn)
+    assert torch.equal(Hk, tref.q_kmajor_ref(Hq, bn, bnp))
+    assert Tk.shape == (m, D, Hk.shape[-1]) and Tk.dtype == torch.bfloat16
+    for nb in range(-(-N // bn)):
+        rows = min(bn, N - nb * bn)
+        block = Tk[:, :, nb * bnp:(nb + 1) * bnp]
+        assert torch.equal(block[:, :, :rows], T[:, nb * bn:nb * bn + rows].mT)
+        assert not block[:, :, rows:].any()
+
+
+@pytest.mark.parametrize("block_n,block_l", [(0, 16), (1041, 16), (8, 0),
+                                             (2048, 128)])
+def test_gram_tri_q_refuses_block_sizes_as_before(block_n, block_l):
+    """The wrapper's refusals are those of the old body: block_n in
+    [1, 1040], block_l >= 1, raised before anything runs; ``q_kmajor``
+    refuses the same block_n, and the plain layout a bnp that cannot hold a
+    row block."""
+    Hq = torch.zeros(1, 8, 16, dtype=torch.int8)
+    s = torch.ones(1, 1, 1)
+    T = torch.zeros(1, 8, 3, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="block_n"):
+        tkernel.gram_tri_q(Hq, s, T, block_n=block_n, block_l=block_l)
+    if block_l >= 1:
+        with pytest.raises(ValueError, match="block_n"):
+            tkernel.q_kmajor(Hq, T, block_n)
+    with pytest.raises(ValueError, match="hold a row block"):
+        tref.q_kmajor_ref(Hq, 8, 7)
+
+
+def test_gram_body_of_int8_is_the_tensor_cores():
+    assert tkernel.gram_body(torch.int8) == "wgmma"
+
+
 @pytest.mark.parametrize("precision", ["fp32", "bf16"])
 @pytest.mark.parametrize("N,L,D", [(40, 70, 3), (9, 129, 2)])
 def test_gram_dense_variant_matches_reference(N, L, D, precision):
