@@ -51,6 +51,24 @@ Phases (any failure raises and the script exits non-zero):
      at 8, 16 and 32;
   5. the quickstart's small default mode on the card, Gauss-Seidel line
      included;
+  5b. the checkpointed, traced fit at phase 4's width (8 agents, 8192
+     samples, L = 2048 sigmoid, r = 8, ring(8), PCG, fp32 stats on
+     ``gram_tri``): (a) fit to 12 iterations with a checkpoint every 4,
+     stopped after 4 and resumed, the resumed state and every diagnostics
+     key held bit for bit against an uninterrupted fit; (b) the same on
+     star(8) at L = 512, whose hub adds 7 terms in one segment sum; (c) a
+     child process that ``REPRO_CHECKPOINT_EXIT_AFTER_SAVE=8`` ends after its
+     save at 8, resumed here and held against (a); (d) one fit with
+     telemetry and a trace: the trace valid, one ``stats`` span and one
+     ``segment`` span a segment, ``gram_tri`` launched inside it, the report
+     healthy, ``msgs_delivered`` 2|E| and ``comm_floats`` the analytic model
+     in every row; (e) the health monitor's early stop with ``dnf_reason``
+     in the snapshot's metadata; (f) MTFL, GO-MTL, DGSP and DNSP at
+     ``usps_like()``'s shape, fp64 and fp32, on the data of each of
+     ``BASELINE_SEEDS``, against the same functions on the CPU
+     (``BASELINE_FP64_TOL``, ``BASELINE_ROUNDOFF_FACTOR``); the stats and
+     segment spans, save and restore seconds and checkpoint bytes on the
+     phase's line;
   6. the backbone route at full recurrentgemma-2b width (26 layers, bf16
      compute, fp32 weights from a seeded generator): 4 agents, 2 batches of
      8 x 4096 tokens each, pooled features into fused L = 2048 statistics,
@@ -81,10 +99,12 @@ import dataclasses
 import json
 from concurrent.futures import ThreadPoolExecutor
 import math
+import os
 import re
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -871,6 +891,305 @@ def backbone_route(torch, cfg, wrappers, n_batches):
     return record, params
 
 
+# phase 5b: the checkpointed fit runs SLICE_ITERS iterations in segments of
+# SLICE_EVERY, is stopped in process after the first segment, and in a child
+# process (REPRO_CHECKPOINT_EXIT_AFTER_SAVE) after PREEMPT_AT
+SLICE_ITERS, SLICE_EVERY, PREEMPT_AT = 12, 4, 8
+# phase 5b (f): the baselines on the card against the same functions on
+# the CPU, on the data and GO-MTL start of each of BASELINE_SEEDS.  In fp64
+# within BASELINE_FP64_TOL of max |CPU| (on the CPU the port and the
+# reference part by at most 7.5e-9 in fp64, tests/test_torch_baselines.py);
+# in fp32 (TF32 off) within BASELINE_ROUNDOFF_FACTOR times the CPU fp32
+# result's own distance from the CPU fp64 result (floored at 1e-6): fp32
+# holds each to the roundoff of the function on these inputs, which DNSP's
+# Newton solve amplifies to ~1e-2, and the card's solvers (cuSOLVER) round
+# otherwise than the CPU's (LAPACK).  The same fp32 run with TF32 on is read
+# beside it (``tf32_ratio``), the fault the fp32 gate is there to catch.
+# On an H100 sound runs read up to 13x (DGSP on a seed whose CPU fp32
+# result sits only 2.9e-5 from fp64) and TF32 runs 118x and more on DGSP
+# and GO-MTL (PERF.md §6): 40 sits ~3x from each.  On MTFL and DNSP
+# TF32 moves the result no further than the roundoff; their fp64 check is
+# what holds the code.
+BASELINE_FP64_TOL = 1e-7
+BASELINE_ROUNDOFF_FACTOR = 40.0
+BASELINE_SEEDS = (0, 1, 2, 3, 4)
+
+
+def slice_inputs(torch):
+    """Phase 5b's fit at phase 4's full width, drawn from phase 4's seeds:
+    H (8, 8192, 2048) sigmoid hidden features of 256 inputs, one-hot T
+    (8, 8192, 3), ring(8), r 8, PCG; fp32 stats on ``gram_tri``.  A child
+    process that calls this gets the same bits."""
+    from repro_torch.core import elm, engine, graph
+    from repro_torch.data import synthetic
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    data = synthetic.multitask_classification(
+        0, m=8, n_train=8192, n_test=1024, n_in=256, n_cls=3, device="cuda")
+    fmap = elm.make_feature_map(1, n_in=256, L=2048, dist="normal",
+                                device="cuda")
+    cfg = engine.ConsensusConfig(r=8, mu1=1.0, mu2=1.0, tau=2.0, zeta=1.0,
+                                 iters=SLICE_ITERS, u_solver="pcg")
+    return fmap(data.X_train), data.Y_train, graph.ring(8), cfg
+
+
+def preempted_fit(checkpoint_dir: str) -> None:
+    """Phase 5b (c)'s child: the checkpointed fit of :func:`slice_inputs`,
+    which ``REPRO_CHECKPOINT_EXIT_AFTER_SAVE`` ends after a save."""
+    import torch
+
+    from repro_torch.core import dmtl_elm
+
+    H, T, g, cfg = slice_inputs(torch)
+    dmtl_elm.fit(H, T, g, cfg, checkpoint_dir=checkpoint_dir,
+                 checkpoint_every=SLICE_EVERY)
+    sys.exit(3)     # the hook did not fire
+
+
+def same_run(torch, label, got, want) -> None:
+    """Phase 5b: a resumed fit equals the uninterrupted one bit for bit,
+    state and every diagnostics key."""
+    (st, diags), (st0, diags0) = got, want
+    for name in ("U", "A", "lam"):
+        check(torch.equal(getattr(st, name), getattr(st0, name)),
+              f"{label}: resumed {name} differs from the uninterrupted fit")
+    check(set(diags) == set(diags0),
+          f"{label}: diagnostics keys {sorted(diags)} != {sorted(diags0)}")
+    for key in diags0:
+        check(torch.equal(diags[key], diags0[key]),
+              f"{label}: resumed diagnostics {key!r} differ")
+
+
+def spans_ms(tracer, name) -> list:
+    return [s["dur"] / 1e3 for s in tracer.spans if s["name"] == name]
+
+
+def interrupted_and_resumed(torch, label, H, T, g, cfg, ckpt) -> tuple:
+    """Phase 5b (a), (b): the uninterrupted fit; the same fit stopped after
+    its first segment (a truncated ``cfg.iters``, as the quickstart's
+    demo stops it); the resumed fit, traced.  Holds the resumed fit against
+    the uninterrupted one bit for bit; returns the fits and the times."""
+    from repro_torch import obs
+    from repro_torch.core import dmtl_elm
+
+    out = {}
+    t0 = time.perf_counter()
+    want = dmtl_elm.fit(H, T, g, cfg)
+    torch.cuda.synchronize()
+    out["uninterrupted_fit_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    dmtl_elm.fit(H, T, g, dataclasses.replace(cfg, iters=SLICE_EVERY),
+                 checkpoint_dir=ckpt, checkpoint_every=SLICE_EVERY)
+    torch.cuda.synchronize()
+    out["interrupted_fit_s"] = time.perf_counter() - t0
+    tracer = obs.Tracer()
+    t0 = time.perf_counter()
+    with obs.use(tracer):
+        got = dmtl_elm.fit(H, T, g, cfg, checkpoint_dir=ckpt,
+                           checkpoint_every=SLICE_EVERY, resume=True)
+    torch.cuda.synchronize()
+    out["resumed_fit_s"] = time.perf_counter() - t0
+    same_run(torch, label, got, want)
+    check(all(bool(torch.isfinite(v).all()) for v in want[1].values()),
+          "checkpointed fit: diagnostics not finite")
+    step = Path(ckpt) / f"step_{SLICE_EVERY:08d}"
+    out.update(
+        restore_s=[x / 1e3 for x in spans_ms(tracer, "restore")],
+        snapshot_s=[x / 1e3 for x in spans_ms(tracer, "snapshot")],
+        segment_span_ms=spans_ms(tracer, "segment"),
+        stats_span_ms=spans_ms(tracer, "stats"),
+        checkpoint_bytes=sum(f.stat().st_size for f in step.iterdir()),
+        objective=[float(want[1]["objective"][0]),
+                   float(want[1]["objective"][-1])],
+    )
+    check(len(out["restore_s"]) == 1 and len(out["segment_span_ms"])
+          == (SLICE_ITERS - SLICE_EVERY) // SLICE_EVERY,
+          f"resumed fit's trace: {len(out['restore_s'])} restores, "
+          f"{len(out['segment_span_ms'])} segments")
+    return out, want
+
+
+def baseline_phase(torch) -> dict:
+    """Phase 5b (f): MTFL, GO-MTL, DGSP and DNSP at ``usps_like()``'s
+    shape on the card in fp64 and fp32, their predictions against the same
+    functions on the CPU, for each of ``BASELINE_SEEDS``
+    (``BASELINE_FP64_TOL``, ``BASELINE_ROUNDOFF_FACTOR``)."""
+    from repro_torch import baselines
+    from repro_torch.configs import paper
+    from repro_torch.data import synthetic
+
+    setup = paper.usps_like()
+    methods = {
+        "mtfl": lambda X, Y, Xt, L0: baselines.mtfl_predict(
+            baselines.mtfl_fit(X, Y, gamma=10.0), Xt),
+        "go_mtl": lambda X, Y, Xt, L0: baselines.gomtl_predict(
+            *baselines.gomtl_fit(X, Y, L0, lam_s=0.05), Xt),
+        "dgsp": lambda X, Y, Xt, L0: baselines.sp_predict(
+            *baselines.dgsp_fit(X, Y, r=setup.r, lam=setup.mu), Xt),
+        "dnsp": lambda X, Y, Xt, L0: baselines.sp_predict(
+            *baselines.dnsp_fit(X, Y, r=setup.r, lam=setup.mu), Xt),
+    }
+
+    def rel(got, want):
+        return float((got.cpu().double() - want.double()).abs().max()
+                     / want.double().abs().max())
+
+    out = {name: {"fp64_rel_err_vs_cpu": [], "fp32_rel_err_vs_cpu": [],
+                  "cpu_fp32_vs_fp64": [], "fp32_ratio": [], "tf32_ratio": [],
+                  "card_fp32_vs_cpu_fp64": [], "finite": True}
+           for name in methods}
+    for seed in BASELINE_SEEDS:
+        data = synthetic.multitask_classification(
+            seed, m=setup.m, n_train=setup.n_train, n_test=setup.n_test,
+            n_in=setup.n_in, n_cls=setup.n_cls, class_sep=setup.class_sep,
+            noise=setup.noise, latent_r=setup.latent_r, device="cpu")
+        # GO-MTL's start, drawn on the host
+        L0 = torch.randn((setup.n_in, setup.r),
+                         generator=torch.Generator().manual_seed(seed)
+                         ) / math.sqrt(setup.n_in)
+        args = (data.X_train, data.Y_train, data.X_test, L0)
+        for name, fn in methods.items():
+            o = out[name]
+            cpu32 = fn(*args)
+            cpu64 = fn(*(a.double() for a in args))
+            t0 = time.perf_counter()
+            card32 = fn(*(a.cuda() for a in args))
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            card64 = fn(*(a.double().cuda() for a in args))
+            torch.backends.cuda.matmul.allow_tf32 = True
+            try:
+                tf32 = fn(*(a.cuda() for a in args))
+            finally:
+                torch.backends.cuda.matmul.allow_tf32 = False
+            roundoff = max(rel(cpu32, cpu64), 1e-6)
+            o["fp64_rel_err_vs_cpu"].append(rel(card64, cpu64))
+            o["fp32_rel_err_vs_cpu"].append(rel(card32, cpu32))
+            o["cpu_fp32_vs_fp64"].append(rel(cpu32, cpu64))
+            o["fp32_ratio"].append(rel(card32, cpu32) / roundoff)
+            o["tf32_ratio"].append(rel(tf32, cpu32) / roundoff)
+            o["card_fp32_vs_cpu_fp64"].append(rel(card32, cpu64))
+            o["finite"] &= bool(torch.isfinite(card32).all()
+                                and torch.isfinite(card64).all())
+            if seed == BASELINE_SEEDS[0]:
+                o["first_call_s"] = seconds
+                o["test_error_pct"] = float(synthetic.classification_error(
+                    card32.cpu(), data.Y_test))
+    emit({"phase": "baselines", "seeds": list(BASELINE_SEEDS),
+          "fp32_limit_ratio": BASELINE_ROUNDOFF_FACTOR, **out})
+    for name, o in out.items():
+        check(o["finite"], f"{name}: not finite")
+        check(max(o["fp64_rel_err_vs_cpu"]) <= BASELINE_FP64_TOL,
+              f"{name}: fp64 card vs CPU {o['fp64_rel_err_vs_cpu']}")
+        check(max(o["fp32_ratio"]) <= BASELINE_ROUNDOFF_FACTOR,
+              f"{name}: fp32 card vs CPU, over the CPU's own fp32 roundoff, "
+              f"{o['fp32_ratio']} > {BASELINE_ROUNDOFF_FACTOR}")
+    return out
+
+
+def checkpoint_phase(torch, kernel) -> dict:
+    """Phase 5b: the checkpointed, traced fit (module docstring)."""
+    from repro_torch import checkpoint, obs
+    from repro_torch.core import dmtl_elm, graph
+
+    H, T, ring, cfg = slice_inputs(torch)
+    out = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        tmp = Path(tmp)
+        # (a) ring(8) at full width
+        out["ring"], want = interrupted_and_resumed(torch, "ring(8)", H, T,
+                                                    ring, cfg, tmp / "a")
+        # (b) star(8): the hub adds 7 terms in one segment sum
+        H_s = H[..., :512].contiguous()
+        out["star_L512"], _ = interrupted_and_resumed(
+            torch, "star(8)", H_s, T, graph.star(8), cfg, tmp / "b")
+        del H_s
+        # (c) a real preemption: a child process killed by the hook
+        child = ("import sys; sys.path.insert(0, {src!r}); "
+                 "sys.path.insert(0, {root!r}); import chip_smoke; "
+                 "chip_smoke.preempted_fit({ckpt!r})").format(
+                     src=str(Path(__file__).resolve().parent / "src"),
+                     root=str(Path(__file__).resolve().parent),
+                     ckpt=str(tmp / "c"))
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-c", child], capture_output=True, text=True,
+            timeout=600, env={**os.environ,
+                              "REPRO_CHECKPOINT_EXIT_AFTER_SAVE":
+                                  str(PREEMPT_AT)})
+        child_s = time.perf_counter() - t0
+        steps = sorted(p.name for p in (tmp / "c").glob("step_*"))
+        check(proc.returncode == 0,
+              f"preempted child exited {proc.returncode}: "
+              f"{proc.stderr[-2000:]}")
+        check(checkpoint.latest_step(tmp / "c") == PREEMPT_AT,
+              f"preempted child left {steps}")
+        t0 = time.perf_counter()
+        got = dmtl_elm.fit(H, T, ring, cfg, checkpoint_dir=tmp / "c",
+                           checkpoint_every=SLICE_EVERY, resume=True)
+        torch.cuda.synchronize()
+        same_run(torch, "resumed after a preemption", got, want)
+        out["preempt"] = {"child_s": child_s, "steps_left": steps,
+                          "resume_s": time.perf_counter() - t0}
+        # (d) the traced fit with telemetry
+        kernel.reset_launches()
+        t0 = time.perf_counter()
+        st, diags = dmtl_elm.fit(
+            H, T, ring, cfg, telemetry=True, trace_dir=tmp / "d",
+            checkpoint_dir=tmp / "d_ckpt", checkpoint_every=SLICE_EVERY)
+        torch.cuda.synchronize()
+        traced_s = time.perf_counter() - t0
+        check(kernel.LAUNCHES["gram_tri"] == 1,
+              f"traced fit launched gram_tri {kernel.LAUNCHES['gram_tri']} "
+              f"times, not once")
+        n_events = obs.validate_trace(tmp / "d" / "trace.json")
+        report = json.loads((tmp / "d" / "report.json").read_text())
+        check(report["health"]["healthy"], f"traced fit: {report['health']}")
+        events = json.loads((tmp / "d" / "trace.json").read_text())[
+            "traceEvents"]
+        names = [e["name"] for e in events]
+        check(names.count("stats") == 1
+              and names.count("segment") == SLICE_ITERS // SLICE_EVERY,
+              f"traced fit's spans: {sorted(set(names))}, "
+              f"{names.count('segment')} segments")
+        floats = obs.modeled_floats_per_iter(
+            "dense", L=H.shape[-1], r=cfg.r, n_edges=ring.n_edges)
+        check(bool((diags["msgs_delivered"] == 2 * ring.n_edges).all()),
+              f"msgs_delivered {diags['msgs_delivered'].tolist()}")
+        check(bool((diags["comm_floats"] == floats).all()),
+              f"comm_floats {diags['comm_floats'].tolist()} != {floats}")
+        same_run(torch, "telemetry on", (st, {k: diags[k] for k in want[1]}),
+                 want)
+        out["trace"] = {
+            "fit_s": traced_s, "events": n_events,
+            "launches": dict(kernel.LAUNCHES),
+            "stats_span_ms": [e["dur"] / 1e3 for e in events
+                              if e["name"] == "stats"],
+            "segment_span_ms": [e["dur"] / 1e3 for e in events
+                                if e["name"] == "segment"],
+            "snapshot_s": [e["dur"] / 1e6 for e in events
+                           if e["name"] == "snapshot"],
+            "comm_floats_per_iter": floats,
+            "resid_max_final": float(diags["resid_max"][-1]),
+        }
+        # (e) the health monitor stops a run it is set to find stalled
+        hc = obs.HealthConfig(stall_window=2, stall_tol=10.0,
+                              consensus_floor=0.0)
+        _, diags = dmtl_elm.fit(H, T, ring, cfg, checkpoint_dir=tmp / "e",
+                                checkpoint_every=2, health=hc)
+        n_done = int(diags["objective"].shape[0])
+        meta = checkpoint.read_meta(tmp / "e")["metadata"]
+        check(n_done < cfg.iters and n_done % 2 == 0,
+              f"health monitor ran {n_done} of {cfg.iters} iterations")
+        check(meta.get("dnf_reason") == "consensus_stall",
+              f"health monitor's snapshot metadata: {meta}")
+        out["health"] = {"iterations": n_done, "metadata": meta}
+    del H, T
+    out["baselines"] = baseline_phase(torch)
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -1301,6 +1620,13 @@ def main() -> int:
     emit({"phase": "quickstart", "seconds": time.perf_counter() - t0,
           "test_mse": {k: qs[k] for k in ("local", "mtl", "dmtl", "fo",
                                           "gs")}})
+
+    # 5b. the checkpointed, traced fit -----------------------------------------
+    t0 = time.perf_counter()
+    slice_run = checkpoint_phase(torch, kernel)
+    emit({"phase": "checkpointed_fit", "seconds": time.perf_counter() - t0,
+          **slice_run})
+    torch.cuda.empty_cache()
 
     # 6. the backbone route at full recurrentgemma-2b width -------------------
     route6, params = backbone_route(

@@ -1,6 +1,8 @@
 """The paper's algorithms on sufficient statistics: ELM primitives, solvers,
 consensus graphs, the neighbor exchange, the dense and colored consensus
-executors, and the MTL-ELM / DMTL-ELM / FO-DMTL-ELM entry points."""
+executors with their segmented ``Runner`` (the checkpointed runs of
+``repro_torch.checkpoint``), and the MTL-ELM / DMTL-ELM / FO-DMTL-ELM entry
+points."""
 
 from repro_torch.core.dmtl_elm import (
     DMTLELMConfig,
@@ -18,10 +20,13 @@ from repro_torch.core.elm import (
 )
 from repro_torch.core.engine import (
     ConsensusConfig,
+    Runner,
+    RunState,
     SufficientStats,
     fit_colored,
     fit_dense,
     jacobian_schedule,
+    make_runner,
     produce_stats,
     sufficient_stats,
     sufficient_stats_fused,
@@ -47,11 +52,12 @@ from repro_torch.core.mtl_elm import (
 
 __all__ = [
     "ConsensusConfig", "DMTLELMConfig", "DMTLELMState", "ELMFeatureMap",
-    "Graph", "MTLELMConfig", "SufficientStats", "chain", "complete",
+    "Graph", "MTLELMConfig", "RunState", "Runner", "SufficientStats",
+    "chain", "complete",
     "dmtl_elm_fit", "dmtl_elm_predict", "elm_fit", "elm_objective",
     "elm_predict", "erdos", "expander", "fit", "fit_colored", "fit_dense",
     "fo_dmtl_elm_fit", "hypercube", "jacobian_schedule", "make_feature_map",
-    "mtl_elm_fit",
+    "make_runner", "mtl_elm_fit",
     "mtl_elm_fit_from_stats", "mtl_elm_predict", "paper_fig2a",
     "produce_stats", "ring", "star", "sufficient_stats",
     "sufficient_stats_fused",

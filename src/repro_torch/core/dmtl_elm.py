@@ -19,11 +19,17 @@ no solve at all (eq. 23).
 
 from __future__ import annotations
 
+import contextlib
+import dataclasses
+
 import torch
 
+from repro_torch.checkpoint import run_checkpointed
 from repro_torch.core import engine
 from repro_torch.core.engine import ConsensusConfig, DenseState
 from repro_torch.core.graph import Graph
+from repro_torch.obs import report as obs_report
+from repro_torch.obs import trace as obs_trace
 
 DMTLELMConfig = ConsensusConfig
 DMTLELMState = DenseState
@@ -67,9 +73,9 @@ def dmtl_elm_fit(H, T, g: Graph, cfg: DMTLELMConfig, feature_map=None,
     return fit(H, T, g, cfg, feature_map=feature_map, use_kernel=use_kernel)
 
 
-def _not_ported(what: str, slice_name: str):
+def _not_ported(what: str, where: str):
     return NotImplementedError(
-        f"{what} is not ported yet: it belongs to port {slice_name}"
+        f"{what} is not ported yet: it comes with {where}"
     )
 
 
@@ -86,6 +92,8 @@ def fit(
     feature_map=None,
     use_kernel: bool = True,
     checkpoint_dir=None,
+    checkpoint_every: int = 0,
+    resume: bool = False,
     telemetry: bool = False,
     trace_dir=None,
     health=None,
@@ -95,15 +103,32 @@ def fit(
     ``executor="dense"`` is the synchronous Jacobian sweep;
     ``executor="colored"`` the Gauss-Seidel colored sweep
     (``engine.fit_colored``, with ``schedule=``, ``staleness=`` and
-    ``order=``, which apply to it alone).  "async" belongs to port slice 2
-    (netsim), "sharded" to slice 3.  ``cfg.stats_precision`` picks the
-    Gram pass's precision ("fp32" | "bf16" | "int8").  The stats pass
-    honors ``cfg.stats_producer``: with
+    ``order=``, which apply to it alone).  "async" comes with netsim
+    (ROADMAP queue 1 item 4), "sharded" with the sharded executors (item
+    5).  ``cfg.stats_precision`` picks the Gram pass's precision ("fp32" |
+    "bf16" | "int8").  The stats pass honors ``cfg.stats_producer``: with
     ``"fused"`` the first argument is the RAW per-agent input X
     (m, N, d_in) and ``feature_map=`` is required, the hidden layer running
     inside the Gram kernel.  ``use_kernel=False`` takes the Gram kernels'
-    plain versions on any device.  Checkpointing, telemetry, tracing and
-    health monitoring are later slices and raise rather than being ignored.
+    plain versions on any device.
+
+    Checkpointed runs: ``checkpoint_dir=`` drives the run through
+    ``repro_torch.checkpoint.run_checkpointed``, which saves a resumable
+    snapshot (state + full diagnostics prefix) every ``checkpoint_every``
+    iterations (0 = once, at the end); ``resume=True`` restarts from the
+    latest snapshot when one exists.  A resumed run returns the final state
+    and the full diagnostics trajectory bit for bit as the uninterrupted
+    run on the same device.
+
+    Observability (``repro_torch.obs``): ``telemetry=True`` sets
+    ``cfg.telemetry`` (per-iteration comm/aggregator counters in the
+    diagnostics); ``trace_dir=`` records spans around the stats pass and
+    every segment, then writes ``trace.json`` (Chrome trace format),
+    ``spans.jsonl`` and a run report (``report.md`` / ``report.json``)
+    there; ``health=`` (``True`` or a ``HealthConfig``) arms the
+    run-health monitor at checkpoint segment boundaries (so it needs
+    ``checkpoint_dir=``): a NaN, diverging or stalled run stops early with
+    a ``dnf_reason`` in its last snapshot's metadata.
 
     Returns ``(DMTLELMState, diagnostics)`` with per-iteration
     'objective', 'lagrangian', 'consensus', 'gamma', 'gamma_min' and
@@ -113,11 +138,12 @@ def fit(
         raise ValueError(
             f"unknown executor {executor!r}; expected one of {EXECUTORS}"
         )
-    if executor not in ("dense", "colored"):
-        raise _not_ported(
-            f"executor={executor!r}",
-            "slice 3" if executor == "sharded" else "slice 2",
-        )
+    if executor == "async":
+        raise _not_ported("executor='async'",
+                          "netsim, ROADMAP queue 1 item 4")
+    if executor == "sharded":
+        raise _not_ported("executor='sharded'",
+                          "port slice 3, ROADMAP queue 1 item 5")
     if executor != "colored" and schedule is not None:
         raise ValueError(
             "schedule= only applies to executor='colored', "
@@ -133,14 +159,6 @@ def fit(
             f"order= only applies to executor='colored', "
             f"got executor={executor!r}"
         )
-    if checkpoint_dir is not None:
-        raise _not_ported("checkpoint_dir= (checkpointed runs)", "slice 2")
-    if telemetry:
-        raise _not_ported("telemetry=True", "slice 2")
-    if trace_dir is not None:
-        raise _not_ported("trace_dir= (span tracing)", "slice 2")
-    if health is not None and health is not False:
-        raise _not_ported("health= (run-health monitors)", "slice 2")
     if cfg.stats_producer not in engine.STATS_PRODUCERS:
         raise ValueError(
             f"unknown cfg.stats_producer {cfg.stats_producer!r}; expected "
@@ -158,14 +176,54 @@ def fit(
         )
     if cfg.aggregator != "mean":
         raise _not_ported(f"aggregator={cfg.aggregator!r}",
-                          "slice 2, with netsim")
-    stats = engine.produce_stats(
-        H, T, producer=cfg.stats_producer, feature_map=feature_map,
-        precision=cfg.stats_precision, use_kernel=use_kernel,
-    )
-    state, diags = engine.make_runner(
-        stats, g, cfg, executor=executor, schedule=schedule,
-        staleness=staleness, order=order).run()
+                          "netsim, ROADMAP queue 1 item 4")
+    if checkpoint_dir is None and (checkpoint_every or resume):
+        raise ValueError(
+            "checkpoint_every=/resume= need checkpoint_dir= to point at "
+            "the snapshot directory"
+        )
+    if checkpoint_every < 0:
+        raise ValueError(
+            f"checkpoint_every must be >= 0, got {checkpoint_every}"
+        )
+    if health is not None and health is not False and checkpoint_dir is None:
+        raise ValueError(
+            "health= monitoring runs at checkpoint segment boundaries; "
+            "pass checkpoint_dir= (and checkpoint_every=) to arm it"
+        )
+    if telemetry:
+        cfg = dataclasses.replace(cfg, telemetry=True)
+    tracer = None
+    trace_ctx = contextlib.nullcontext()
+    if trace_dir is not None:
+        tracer = obs_trace.Tracer()
+        trace_ctx = obs_trace.use(tracer)
+    with trace_ctx:
+        stats = engine.produce_stats(
+            H, T, producer=cfg.stats_producer, feature_map=feature_map,
+            precision=cfg.stats_precision, use_kernel=use_kernel,
+        )
+        runner = engine.make_runner(
+            stats, g, cfg, executor=executor, schedule=schedule,
+            staleness=staleness, order=order)
+        if checkpoint_dir is not None:
+            state, diags = run_checkpointed(
+                runner, checkpoint_dir=checkpoint_dir,
+                checkpoint_every=checkpoint_every, resume=resume,
+                health=health,
+            )
+        else:
+            state, diags = runner.run()
+    if tracer is not None:
+        tracer.export(trace_dir)
+        obs_report.write(
+            trace_dir, diags, tracer.spans,
+            meta={
+                "executor": executor, "m": g.m, "n_edges": g.n_edges,
+                "iters": cfg.iters, "aggregator": cfg.aggregator,
+                "telemetry": bool(cfg.telemetry),
+            },
+        )
     return DenseState(state.U, state.A, state.lam), diags
 
 

@@ -29,7 +29,26 @@ to per-agent updates over the sufficient statistics
     Gauss-Seidel colored sweeps over the same body: one color class at a
     time, neighbor sums re-gathered between classes, optional message
     staleness and the Gauss-Southwell class order.  The async and sharded
-    executors come in later slices.
+    executors come with netsim and the sharded executors (ROADMAP queue 1
+    items 4 and 5).
+
+Telemetry (``cfg.telemetry=True``; the observability layer,
+``repro_torch.obs``): every executor additionally reports, per iteration,
+
+  resid_max       max |C U| over the edges (worst-agent consensus)
+  msgs_delivered  fresh deliveries this iteration
+  msgs_stale      stale-served deliveries (colored sweeps, staleness > 1)
+  msgs_dropped    deliveries masked out (0: no executor here drops any)
+  agg_rejected    robust-aggregation rejections (0 on the mean path, the
+                  only aggregator ported)
+  comm_floats     the analytic floats-per-iteration model
+                  (``repro_torch.obs.counters.modeled_floats_per_iter``)
+
+with the reference's counts.  The gate is a plain ``if cfg.telemetry``:
+with telemetry off the diagnostics' keys and every value are those of the
+engine without it.  With a tracer installed (``repro_torch.obs.use``),
+``produce_stats`` records a ``"stats"`` span and ``Runner.run_segment`` a
+``"segment"`` span, each waiting for the device inside the span.
 
 The reference vmaps the per-agent body and scans the iterations inside one
 compiled program.  Here the agent axis is a batch dimension written out and
@@ -51,6 +70,8 @@ from repro_torch.core.solvers import (
     sylvester_ridge_solve,
 )
 from repro_torch.kernels.gram import ops as gram_ops
+from repro_torch.obs import trace as obs_trace
+from repro_torch.obs.counters import modeled_floats_per_iter
 
 
 # --------------------------------------------------------------------------
@@ -145,16 +166,27 @@ def produce_stats(
                 "precision='int8' is the unfused (materialized) stream; "
                 "the fused producer supports fp32/bf16"
             )
-        return sufficient_stats_fused(batch, feature_map, T,
-                                      use_kernel=use_kernel,
-                                      precision=precision)
-    if feature_map is not None:
+    elif feature_map is not None:
         raise ValueError(
             "feature_map= only applies to producer='fused', got "
             f"producer={producer!r}"
         )
-    return sufficient_stats(batch, T, use_kernel=use_kernel,
-                            precision=precision, quant_seed=quant_seed)
+
+    def dispatch():
+        if producer == "fused":
+            return sufficient_stats_fused(batch, feature_map, T,
+                                          use_kernel=use_kernel,
+                                          precision=precision)
+        return sufficient_stats(batch, T, use_kernel=use_kernel,
+                                precision=precision, quant_seed=quant_seed)
+
+    tr = obs_trace.current()
+    if tr is None:
+        return dispatch()
+    with tr.span("stats", producer=producer, precision=precision):
+        out = dispatch()
+        obs_trace.block_until_ready(out)
+    return out
 
 
 def init_stats(m: int, L: int, d: int, dtype=torch.float32,
@@ -302,6 +334,9 @@ class ConsensusConfig:
     gamma_floor: float = 0.0
     # Neighbor aggregation: only the paper's plain sum ("mean") is ported.
     aggregator: str = "mean"
+    # Per-iteration comm/aggregator counters in the diagnostics (module
+    # docstring, "Telemetry"); False keeps the diagnostics as they were.
+    telemetry: bool = False
 
 
 def _u_solve_kron(G, M, rhs, c, precomp=None):
@@ -458,8 +493,8 @@ def _edge_setup(
     if cfg.aggregator != "mean":
         raise NotImplementedError(
             f"aggregator={cfg.aggregator!r}: the robust aggregators are not "
-            f"ported yet; they come with the netsim slice (port slice 2, "
-            f"ROADMAP queue 1 item 8); only 'mean' is available"
+            f"ported yet; they come with netsim, ROADMAP queue 1 item 4; "
+            f"only 'mean' is available"
         )
     m, L = stats.G.shape[0], stats.G.shape[-1]
     d = stats.R.shape[-1]
@@ -492,9 +527,12 @@ def _iteration_diag(stats, cfg, U, A, lam_new, resid_new, gamma,
       gamma       mean adaptive dual step over edges
       gamma_min   min over edges
       primal_sq   sum of squared edge residuals
+
+    and, with ``cfg.telemetry``, ``resid_max`` (max |C U|); the message
+    counters are constant for a runner and filled in by :func:`_diag_rows`.
     """
     obj = objective_from_stats(stats, U, A, cfg.mu1, cfg.mu2)
-    return {
+    diag = {
         "objective": obj,
         "lagrangian": obj
         + torch.sum(lam_new * resid_new)
@@ -504,6 +542,15 @@ def _iteration_diag(stats, cfg, U, A, lam_new, resid_new, gamma,
         "gamma_min": torch.min(gamma),
         "primal_sq": torch.sum(primal),
     }
+    if cfg.telemetry:
+        diag["resid_max"] = torch.max(torch.abs(resid_new))
+    return diag
+
+
+DIAG_KEYS = ("objective", "lagrangian", "consensus", "gamma", "gamma_min",
+             "primal_sq")
+TELEMETRY_KEYS = ("resid_max", "msgs_delivered", "msgs_stale",
+                  "msgs_dropped", "agg_rejected")
 
 
 class RunState(NamedTuple):
@@ -544,7 +591,14 @@ class Runner:
                 f"segment [{state.k}, {state.k + n}) runs past cfg.iters="
                 f"{self.cfg.iters}"
             )
-        return self.segment_fn(state, n)
+        tr = obs_trace.current()
+        if tr is None:
+            return self.segment_fn(state, n)
+        with tr.span("segment", executor=self.executor, start=state.k,
+                     iters=n):
+            out = self.segment_fn(state, n)
+            obs_trace.block_until_ready(out)
+        return out
 
     def run(self, state: RunState | None = None):
         """Drive to ``cfg.iters`` from ``state`` (or a fresh init_state)."""
@@ -558,15 +612,27 @@ class Runner:
         return self.run_segment(state, self.cfg.iters - state.k)
 
 
-def _diag_rows(rows: list, like: torch.Tensor) -> dict:
-    """Stack per-iteration diagnostics rows into (n,) tensors."""
-    keys = ("objective", "lagrangian", "consensus", "gamma", "gamma_min",
-            "primal_sq")
-    return {
+def _diag_rows(rows: list, like: torch.Tensor, cfg: ConsensusConfig,
+               comm_floats: int, n_edges: int, fresh: float) -> dict:
+    """Stack per-iteration diagnostics rows into (n,) tensors; with
+    ``cfg.telemetry`` also ``resid_max`` and the constant counters of the
+    runner: ``fresh`` of the 2·E neighbor deliveries arrive fresh, the rest
+    stale, none is dropped, the mean aggregator rejects nothing, and
+    ``comm_floats`` floats move."""
+    keys = DIAG_KEYS + (("resid_max",) if cfg.telemetry else ())
+    diags = {
         key: (torch.stack([r[key] for r in rows]) if rows
               else torch.zeros((0,), dtype=like.dtype, device=like.device))
         for key in keys
     }
+    if cfg.telemetry:
+        for key, value in (("msgs_delivered", fresh),
+                           ("msgs_stale", 2.0 * n_edges - fresh),
+                           ("msgs_dropped", 0.0), ("agg_rejected", 0.0),
+                           ("comm_floats", comm_floats)):
+            diags[key] = torch.full((len(rows),), float(value),
+                                    dtype=like.dtype, device=like.device)
+    return diags
 
 
 def make_runner(
@@ -585,8 +651,10 @@ def make_runner(
                                staleness=staleness, order=order)
     if executor in ("async", "sharded", "sharded_graph"):
         raise NotImplementedError(
-            f"executor={executor!r} is not ported yet: it belongs to port "
-            + ("slice 2 (netsim)" if executor == "async" else "slice 3")
+            f"executor={executor!r} is not ported yet: it comes with "
+            + ("netsim, ROADMAP queue 1 item 4" if executor == "async"
+               else "the sharded executors (port slice 3), ROADMAP queue 1 "
+                    "item 5")
         )
     if executor != "dense":
         raise ValueError(
@@ -600,6 +668,8 @@ def make_runner(
     es = _edge_setup(stats, g, cfg)
     stats = es.stats
     m = stats.G.shape[0]
+    comm = modeled_floats_per_iter("dense", L=stats.G.shape[-1], r=cfg.r,
+                                   n_edges=g.n_edges)
 
     def step(U, A, lam):
         views = es.ex.gather_views(U, lam)
@@ -612,7 +682,11 @@ def make_runner(
         lam_new, gamma, primal = dual_step(lam, resid_old, resid_new, cfg)
         diag = _iteration_diag(stats, cfg, U_new, A_new, lam_new, resid_new,
                                gamma, primal)
-        return U_new, A_new, lam_new, diag
+        # the solvers may return column-major layouts, and a BLAS call's
+        # last bits can follow the layout: the carried state is kept in the
+        # layout a restored checkpoint has, so a resumed run repeats the
+        # uninterrupted one bit for bit
+        return U_new.contiguous(), A_new.contiguous(), lam_new, diag
 
     def init_fn():
         return RunState(U=es.init.U, A=es.init.A, lam=es.init.lam, k=0)
@@ -623,7 +697,10 @@ def make_runner(
         for _ in range(n):
             U, A, lam, diag = step(U, A, lam)
             rows.append(diag)
-        return RunState(U=U, A=A, lam=lam, k=state.k + n), _diag_rows(rows, U)
+        # synchronous Jacobian delivery: both ends of every edge receive the
+        # fresh U each iteration
+        return (RunState(U=U, A=A, lam=lam, k=state.k + n),
+                _diag_rows(rows, U, cfg, comm, g.n_edges, 2.0 * g.n_edges))
 
     return Runner("dense", cfg, init_fn, segment_fn)
 
@@ -766,6 +843,12 @@ def _colored_runner(
     for j, (s, e) in enumerate(g.edges):
         inc[cls_of[s], j] = 1.0
         inc[cls_of[e], j] = 1.0
+    comm = modeled_floats_per_iter("colored", L=stats.G.shape[-1], r=cfg.r,
+                                   n_edges=g.n_edges)
+    # staleness <= 1 reads current-round views (the live U or the previous
+    # iterate), which count as fresh; deeper staleness serves every message
+    # stale
+    fresh = 2.0 * g.n_edges if staleness <= 1 else 0.0
 
     def sweep_order(U):
         if order == "fixed":
@@ -799,9 +882,11 @@ def _colored_runner(
         return U, A, lam_new, hist, diag
 
     def init_fn():
+        # the Gauss-Southwell state carries no window, as the reference's
         U0 = es.init.U
-        return RunState(U=U0, A=es.init.A, lam=es.init.lam, k=0,
-                        hist=U0.expand((staleness,) + tuple(U0.shape)))
+        hist = (None if order == "gauss_southwell"
+                else U0.expand((staleness,) + tuple(U0.shape)))
+        return RunState(U=U0, A=es.init.A, lam=es.init.lam, k=0, hist=hist)
 
     def segment_fn(state, n):
         U, A, lam, hist = state.U, state.A, state.lam, state.hist
@@ -810,6 +895,6 @@ def _colored_runner(
             U, A, lam, hist, diag = step(U, A, lam, hist)
             rows.append(diag)
         return (RunState(U=U, A=A, lam=lam, k=state.k + n, hist=hist),
-                _diag_rows(rows, U))
+                _diag_rows(rows, U, cfg, comm, g.n_edges, fresh))
 
     return Runner("colored", cfg, init_fn, segment_fn)

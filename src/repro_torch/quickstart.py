@@ -11,18 +11,40 @@ The three consensus fits start from :func:`tilted_start`, not the engine's
 symmetric all-ones start, so that their result does not depend on roundoff.
 
 Run:  PYTHONPATH=src python -m repro_torch.quickstart [--device cpu]
+
+``--resume`` instead shows the checkpointed runtime on the paper's
+Fig. 2(a) federation: phase 1 fits with periodic checkpoints but stops at
+``--interrupt-at`` (a simulated preemption); phase 2 calls the SAME entry
+point with ``resume=True`` and continues from disk to the full iteration
+budget, then checks that the resumed state and the whole diagnostics
+trajectory are BITWISE those of an uninterrupted run.
+
+Run:  PYTHONPATH=src python -m repro_torch.quickstart --resume \
+          [--checkpoint-dir DIR] [--iters N] [--interrupt-at K] \
+          [--checkpoint-every E] [--device cpu]
+
+``--trace`` shows the observability layer (``repro_torch.obs``): one
+DMTL-ELM fit with ``telemetry=True`` (per-iteration comm counters in the
+diagnostics) and ``trace_dir=`` (span tracing), then validates the exported
+Chrome-format ``trace.json`` (load it in Perfetto), checks that the run
+report is healthy and prints ``TRACE_OK``.
+
+Run:  PYTHONPATH=src python -m repro_torch.quickstart --trace \
+          [--trace-dir DIR] [--iters N] [--device cpu]
 """
 
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import json
+from pathlib import Path
 
 import torch
 
 from repro_torch.core import (
-    DMTLELMConfig, MTLELMConfig, elm_fit, mtl_elm_fit_from_stats, ring,
-    sufficient_stats,
+    DMTLELMConfig, MTLELMConfig, elm_fit, fit, mtl_elm_fit_from_stats,
+    paper_fig2a, ring, sufficient_stats,
 )
 from repro_torch.core.engine import make_runner
 from repro_torch.data.synthetic import multitask_regression
@@ -120,9 +142,109 @@ def main(device="cuda", seed: int = 0) -> dict:
     return res
 
 
+def resume_demo(checkpoint_dir="quickstart_ckpt", iters: int = 600,
+                interrupt_at: int = 0, checkpoint_every: int = 100,
+                device="cuda", seed: int = 0) -> dict:
+    """Interrupt-and-continue on the Fig. 2(a) federation (5 agents).
+    ``interrupt_at=0`` stops phase 1 at ``iters // 3``."""
+    g = paper_fig2a()
+    H_tr, T_tr, H_te, T_te = multitask_regression(
+        seed, m=g.m, n_train=16, n_test=300, L=64, r=2, noise=0.1,
+        device=device,
+    )
+    cfg = DMTLELMConfig(r=2, mu1=0.1, mu2=0.1, tau=1.0, zeta=1.0,
+                        iters=iters)
+    interrupt_at = interrupt_at or iters // 3
+
+    # Phase 1: fit with periodic checkpoints, "preempted" at interrupt_at
+    # (the same entry point with a truncated iteration budget).
+    fit(H_tr, T_tr, g, dataclasses.replace(cfg, iters=interrupt_at),
+        checkpoint_dir=checkpoint_dir, checkpoint_every=checkpoint_every)
+    print(f"phase 1: interrupted at iteration {interrupt_at}, "
+          f"checkpoints under {checkpoint_dir}")
+
+    # Phase 2: resume from the latest snapshot and run to the full budget.
+    st, diag = fit(H_tr, T_tr, g, cfg, checkpoint_dir=checkpoint_dir,
+                   checkpoint_every=checkpoint_every, resume=True)
+    err = float(torch.mean((H_te @ st.U @ st.A - T_te) ** 2))
+    print(f"phase 2: resumed {interrupt_at} -> {cfg.iters}, "
+          f"test MSE {err:.5f}, "
+          f"consensus {float(diag['consensus'][-1]):.2e}")
+
+    # The contract: resumed == uninterrupted, bitwise, state AND trajectory.
+    st0, diag0 = fit(H_tr, T_tr, g, cfg)
+    for name in ("U", "A", "lam"):
+        if not torch.equal(getattr(st, name), getattr(st0, name)):
+            raise AssertionError(f"resumed {name} differs from the "
+                                 f"uninterrupted run")
+    if set(diag) != set(diag0):
+        raise AssertionError(f"diagnostics keys {sorted(diag)} != "
+                             f"{sorted(diag0)}")
+    for key in diag0:
+        if not torch.equal(diag[key], diag0[key]):
+            raise AssertionError(f"resumed diagnostics {key!r} differ from "
+                                 f"the uninterrupted run")
+    print("resumed run is bitwise identical to the uninterrupted run ✓")
+    return {"test_mse": err, "state": st, "diags": diag}
+
+
+def trace_demo(trace_dir="quickstart_trace", iters: int = 600,
+               device="cuda", seed: int = 0) -> dict:
+    """One telemetry-on traced fit: counters, spans, and the run report."""
+    from repro_torch.obs import validate_trace
+
+    m, r = 8, 2
+    g = ring(m)
+    H_tr, T_tr, H_te, T_te = multitask_regression(
+        seed, m=m, n_train=16, n_test=300, L=64, r=r, noise=0.1,
+        device=device,
+    )
+    cfg = DMTLELMConfig(r=r, mu1=0.1, mu2=0.1, tau=1.0, zeta=1.0,
+                        iters=iters)
+    st, diag = fit(H_tr, T_tr, g, cfg, telemetry=True, trace_dir=trace_dir)
+    err = float(torch.mean((H_te @ st.U @ st.A - T_te) ** 2))
+
+    trace_dir = Path(trace_dir)
+    n_events = validate_trace(trace_dir / "trace.json")
+    report = json.loads((trace_dir / "report.json").read_text())
+    delivered = float(diag["msgs_delivered"].sum())
+    floats_per_iter = float(diag["comm_floats"][0])
+    print(f"test MSE {err:.5f}, "
+          f"consensus {float(diag['consensus'][-1]):.2e}")
+    print(f"trace: {n_events} spans in {trace_dir / 'trace.json'} "
+          f"(Chrome trace format — open in Perfetto)")
+    print(f"comm: {delivered:.0f} subspace messages delivered, "
+          f"{floats_per_iter:.0f} floats/iteration (analytic model)")
+    print(f"report: {trace_dir / 'report.md'} "
+          f"(health: {report['health']['dnf_reason'] or 'healthy'})")
+    if not report["health"]["healthy"]:
+        raise AssertionError(f"run report is not healthy: {report['health']}")
+    print("TRACE_OK")
+    return {"test_mse": err, "diags": diag, "report": report,
+            "n_events": n_events}
+
+
 if __name__ == "__main__":
     parser = argparse.ArgumentParser(description=__doc__)
     parser.add_argument("--device", default="cuda")
     parser.add_argument("--seed", type=int, default=0)
+    parser.add_argument("--resume", action="store_true",
+                        help="run the checkpoint/interrupt/resume demo")
+    parser.add_argument("--trace", action="store_true",
+                        help="run the telemetry/tracing/report demo")
+    parser.add_argument("--checkpoint-dir", default="quickstart_ckpt")
+    parser.add_argument("--trace-dir", default="quickstart_trace")
+    parser.add_argument("--iters", type=int, default=600)
+    parser.add_argument("--interrupt-at", type=int, default=0,
+                        help="simulated preemption iteration (0: iters // 3)")
+    parser.add_argument("--checkpoint-every", type=int, default=100)
     args = parser.parse_args()
-    main(device=args.device, seed=args.seed)
+    if args.resume:
+        resume_demo(args.checkpoint_dir, args.iters, args.interrupt_at,
+                    args.checkpoint_every, device=args.device,
+                    seed=args.seed)
+    elif args.trace:
+        trace_demo(args.trace_dir, args.iters, device=args.device,
+                   seed=args.seed)
+    else:
+        main(device=args.device, seed=args.seed)

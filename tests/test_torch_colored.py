@@ -164,7 +164,7 @@ def test_make_runner_executor_dispatch():
     _, st = _stats(4)
     g, cfg = tg.ring(4), te.ConsensusConfig(r=2, iters=2)
     assert te.make_runner(st, g, cfg).executor == "dense"
-    with pytest.raises(NotImplementedError, match="slice 2"):
+    with pytest.raises(NotImplementedError, match="item 4"):
         te.make_runner(st, g, cfg, executor="async")
     with pytest.raises(NotImplementedError, match="slice 3"):
         te.make_runner(st, g, cfg, executor="sharded")

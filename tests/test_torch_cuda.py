@@ -753,3 +753,62 @@ def test_mlstm_refuses_what_the_kernel_does_not_take(gen):
     with pytest.raises(RuntimeError, match="forward-only"):
         mlstm_kernel.mlstm(q.clone().requires_grad_(), k, v, f, i, 4)
     assert mlstm_kernel.LAUNCHES["mlstm"] == before
+
+
+@pytest.mark.parametrize("executor", [{}, dict(executor="colored",
+                                               staleness=2)])
+@pytest.mark.parametrize("graph", ["ring", "star"])
+def test_checkpointed_fit_resumes_bitwise_on_the_card(gen, tmp_path, graph,
+                                                      executor):
+    """Stopped at 4 and resumed to 10, the fit on the card equals the
+    uninterrupted one bit for bit: the Gram kernel, the PCG solves and the
+    fixed-order segment sums (star(6)'s hub adds 5 terms) repeat their
+    bits."""
+    from repro_torch.core import dmtl_elm, engine
+    from repro_torch.core import graph as graphs
+
+    g = graphs.ring(5) if graph == "ring" else graphs.star(6)
+    H = torch.randn(g.m, 300, 96, device="cuda", generator=gen) / 96**0.5
+    T = torch.randn(g.m, 300, 3, device="cuda", generator=gen)
+    cfg = engine.ConsensusConfig(r=2, iters=10, tau=2.0, zeta=1.0,
+                                 u_solver="pcg")
+    before = kernel.LAUNCHES["gram_tri"]
+    st0, d0 = dmtl_elm.fit(H, T, g, cfg, **executor)
+    assert kernel.LAUNCHES["gram_tri"] == before + 1
+    kw = dict(executor, checkpoint_dir=tmp_path, checkpoint_every=3)
+    dmtl_elm.fit(H, T, g, engine.ConsensusConfig(
+        r=2, iters=4, tau=2.0, zeta=1.0, u_solver="pcg"), **kw)
+    st, d = dmtl_elm.fit(H, T, g, cfg, resume=True, **kw)
+    for a, b in zip(st, st0):
+        assert a.is_cuda and torch.equal(a, b)
+    assert set(d) == set(d0)
+    for key in d0:
+        assert torch.equal(d[key], d0[key]), key
+
+
+def test_traced_fit_on_the_card(gen, tmp_path):
+    import json
+
+    from repro_torch import obs
+    from repro_torch.core import dmtl_elm, engine
+    from repro_torch.core import graph as graphs
+
+    g = graphs.ring(6)
+    H = torch.randn(6, 256, 64, device="cuda", generator=gen) / 8.0
+    T = torch.randn(6, 256, 2, device="cuda", generator=gen)
+    cfg = engine.ConsensusConfig(r=2, iters=9, tau=2.0, zeta=1.0)
+    before = kernel.LAUNCHES["gram_tri"]
+    _, d = dmtl_elm.fit(H, T, g, cfg, telemetry=True,
+                        trace_dir=tmp_path / "t",
+                        checkpoint_dir=tmp_path / "c", checkpoint_every=3)
+    assert kernel.LAUNCHES["gram_tri"] == before + 1
+    assert obs.validate_trace(tmp_path / "t" / "trace.json") == 7
+    names = [e["name"] for e in json.loads(
+        (tmp_path / "t" / "trace.json").read_text())["traceEvents"]]
+    assert (names.count("stats"), names.count("segment"),
+            names.count("snapshot")) == (1, 3, 3)
+    report = json.loads((tmp_path / "t" / "report.json").read_text())
+    assert report["health"]["healthy"]
+    assert bool((d["msgs_delivered"] == 2 * g.n_edges).all())
+    assert bool((d["comm_floats"] == obs.modeled_floats_per_iter(
+        "dense", L=64, r=2, n_edges=g.n_edges)).all())

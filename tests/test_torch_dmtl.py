@@ -151,24 +151,24 @@ def test_fo_dmtl_and_lipschitz_match_reference():
 
 
 def test_fit_rejects_what_later_slices_bring():
-    """executor="colored" came with slice 2 (tested below); the rest still
-    raises, and the colored-only keywords are refused elsewhere with the
-    reference's messages."""
+    """executor="colored" came with slice 2 (tested below), checkpointing,
+    telemetry, tracing and health with ROADMAP queue 1 item 3
+    (``test_torch_obs.py``, ``test_torch_checkpoint.py``); the async
+    executor and the robust aggregators still raise, naming netsim's
+    ROADMAP item, and the colored-only keywords are refused elsewhere with
+    the reference's messages."""
     H = torch.ones(4, 6, 5)
     T = torch.ones(4, 6, 1)
     g, cfg = tg.ring(4), te.ConsensusConfig(r=2, iters=1)
-    for kw in (dict(executor="async"),
-               dict(checkpoint_dir="ck"), dict(telemetry=True),
-               dict(trace_dir="tr"), dict(health=True)):
-        with pytest.raises(NotImplementedError, match="slice 2"):
-            td.fit(H, T, g, cfg, **kw)
+    with pytest.raises(NotImplementedError, match="item 4"):
+        td.fit(H, T, g, cfg, executor="async")
     with pytest.raises(NotImplementedError, match="slice 3"):
         td.fit(H, T, g, cfg, executor="sharded")
     with pytest.raises(ValueError, match="unknown executor"):
         td.fit(H, T, g, cfg, executor="gossip")
     with pytest.raises(ValueError, match="feature_map"):
         td.fit(H, T, g, dataclasses.replace(cfg, stats_producer="fused"))
-    with pytest.raises(NotImplementedError, match="slice 2"):
+    with pytest.raises(NotImplementedError, match="item 4"):
         td.fit(H, T, g, dataclasses.replace(cfg, aggregator="krum_like"))
     for kw, match in ((dict(staleness=1), "staleness= only applies"),
                       (dict(order="gauss_southwell"), "order= only applies"),

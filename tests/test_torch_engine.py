@@ -367,15 +367,14 @@ def test_robust_aggregator_names_the_later_slice():
     _, st = _stats_pair(H, T)
     cfg = dataclasses.replace(te.ConsensusConfig(r=2, iters=1),
                               aggregator="trimmed_mean")
-    with pytest.raises(NotImplementedError, match="slice 2"):
+    with pytest.raises(NotImplementedError, match="item 4"):
         te.fit_dense(st, tg.ring(4), cfg)
 
 
 @pytest.mark.parametrize("graph", ["ring", "paper_fig2a", "star"])
 def test_dense_exchange_matches_reference(graph):
-    """Segment sums by index_add_: on the CPU they add in edge order like
-    the reference's segment_sum (exact here; on CUDA, atomics may reorder
-    the adds of a degree > 2 agent at the ulp level)."""
+    """Segment sums add in edge order like the reference's segment_sum, on
+    every device."""
     from repro.core import exchange as jx
     from repro_torch.core import exchange as tx
 
@@ -394,6 +393,29 @@ def test_dense_exchange_matches_reference(graph):
     _close(et.edge_diff(_t(U)), ej.edge_diff(jnp.asarray(U)), rtol=0)
     for a, b in zip(tx.neighbor_table(gt), jx.neighbor_table(gj)):
         np.testing.assert_array_equal(a, b)
-    with pytest.raises(NotImplementedError, match="slice 2"):
+    with pytest.raises(NotImplementedError, match="item 4"):
         tx.DenseExchange(gt, torch.float32, agg=lambda V, M: V,
                          device="cpu")
+
+
+@pytest.mark.parametrize("graph", ["ring", "paper_fig2a", "star"])
+def test_fixed_order_segment_sums_keep_index_add_bits(graph):
+    """The exchange's fixed-order segment sums give the bits of
+    ``index_add_`` on the CPU (a sequential add in edge order onto zeros),
+    the sums the exchange made before it, on a hub with 7 terms too."""
+    from repro_torch.core import exchange as tx
+
+    tmake, _, args = GRAPHS[graph]
+    g = tmake(*args) if graph != "star" else tg.star(8)
+    rng = np.random.default_rng(5)
+    U = _t(rng.standard_normal((g.m, 6, 2)).astype(np.float32))
+    lam = _t(rng.standard_normal((g.n_edges, 6, 2)).astype(np.float32))
+    ex = tx.DenseExchange(g, torch.float32, device="cpu")
+
+    def index_add(x, idx):
+        return torch.zeros((g.m,) + x.shape[1:]).index_add_(0, idx, x)
+
+    assert torch.equal(ex.neighbor_sum(U), index_add(U[ex.dst], ex.src)
+                       + index_add(U[ex.src], ex.dst))
+    assert torch.equal(ex.ct_transpose(lam), index_add(lam, ex.src)
+                       - index_add(lam, ex.dst))
