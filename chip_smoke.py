@@ -69,6 +69,20 @@ Phases (any failure raises and the script exits non-zero):
      (``BASELINE_FP64_TOL``, ``BASELINE_ROUNDOFF_FACTOR``); the stats and
      segment spans, save and restore seconds and checkpoint bytes on the
      phase's line;
+  5c. the event-tape async executor (``repro_torch.netsim``) at phase 4's
+     width (ring(8), star(8), r = 8, 12 ticks, the Sylvester solve),
+     stats from one ``gram_tri`` launch: (a) the zero-delay tape against
+     ``fit_dense``, live and aged duals, on ring(8) and star(8), and (b) a
+     zero-attack ``AdversaryTape`` against its base channel tape, both bit
+     for bit in the state and every diagnostics row; (c) an async fit with
+     a channel and aged duals stopped after its first segment and resumed,
+     bit for bit the uninterrupted fit (``interrupted_and_resumed``); (d)
+     at r = 1 and L = ``ASYNC_L``, a lossy channel with stragglers and
+     ``coordinate_median`` under churn held against the same runs in fp64
+     on the CPU (``ASYNC_FP64_TOL``, PCG); (e) one sign-flipping agent at
+     full width under every aggregator, finite with every key, the audit's
+     rejections on hypercube(3) and none on the clean tape; deliveries sum
+     to 2E every tick; the seconds per tick of each executor;
   6. the backbone route at full recurrentgemma-2b width (26 layers, bf16
      compute, fp32 weights from a seeded generator): 4 agents, 2 batches of
      8 x 4096 tokens each, pooled features into fused L = 2048 statistics,
@@ -965,29 +979,37 @@ def spans_ms(tracer, name) -> list:
     return [s["dur"] / 1e3 for s in tracer.spans if s["name"] == name]
 
 
-def interrupted_and_resumed(torch, label, H, T, g, cfg, ckpt) -> tuple:
-    """Phase 5b (a), (b): the uninterrupted fit; the same fit stopped after
-    its first segment (a truncated ``cfg.iters``, as the quickstart's
-    demo stops it); the resumed fit, traced.  Holds the resumed fit against
-    the uninterrupted one bit for bit; returns the fits and the times."""
+def interrupted_and_resumed(torch, label, H, T, g, cfg, ckpt, interrupt=None,
+                            **fit_kw) -> tuple:
+    """Phase 5b (a), (b) and 5c (c): the uninterrupted fit; the same fit
+    stopped after its first segment (by default a truncated ``cfg.iters``,
+    as the quickstart's demo stops it; ``interrupt(ckpt)`` stops it
+    otherwise); the resumed fit, traced.  ``fit_kw`` goes to every
+    ``dmtl_elm.fit``.  Holds the resumed fit against the uninterrupted one
+    bit for bit; returns the fits and the times."""
     from repro_torch import obs
     from repro_torch.core import dmtl_elm
 
     out = {}
     t0 = time.perf_counter()
-    want = dmtl_elm.fit(H, T, g, cfg)
+    want = dmtl_elm.fit(H, T, g, cfg, **fit_kw)
     torch.cuda.synchronize()
     out["uninterrupted_fit_s"] = time.perf_counter() - t0
     t0 = time.perf_counter()
-    dmtl_elm.fit(H, T, g, dataclasses.replace(cfg, iters=SLICE_EVERY),
-                 checkpoint_dir=ckpt, checkpoint_every=SLICE_EVERY)
+    if interrupt is None:
+        dmtl_elm.fit(H, T, g, dataclasses.replace(cfg, iters=SLICE_EVERY),
+                     checkpoint_dir=ckpt, checkpoint_every=SLICE_EVERY,
+                     **fit_kw)
+    else:
+        interrupt(ckpt)
     torch.cuda.synchronize()
     out["interrupted_fit_s"] = time.perf_counter() - t0
     tracer = obs.Tracer()
     t0 = time.perf_counter()
     with obs.use(tracer):
         got = dmtl_elm.fit(H, T, g, cfg, checkpoint_dir=ckpt,
-                           checkpoint_every=SLICE_EVERY, resume=True)
+                           checkpoint_every=SLICE_EVERY, resume=True,
+                           **fit_kw)
     torch.cuda.synchronize()
     out["resumed_fit_s"] = time.perf_counter() - t0
     same_run(torch, label, got, want)
@@ -1187,6 +1209,195 @@ def checkpoint_phase(torch, kernel) -> dict:
         out["health"] = {"iterations": n_done, "metadata": meta}
     del H, T
     out["baselines"] = baseline_phase(torch)
+    return out
+
+
+# phase 5c: the async executor at phase 4's width.  ASYNC_L is the width
+# of the runs held against fp64 on the CPU (G's and R's leading block, as
+# phase 5b's star case); those run PCG, whose fp32 roundoff is within phase
+# 4c's limits, where the Sylvester solve's fp32 eigh moves the consensus
+# residual by ~2e-2 against fp64 at this width (on the CPU too)
+ASYNC_L = 512
+ASYNC_FP64_TOL = {"objective": 1e-5, "consensus": 1e-2}
+ASYNC_AGGREGATORS = ("mean", "trimmed_mean", "coordinate_median",
+                     "krum_like")
+
+
+def timed_run(torch, runner, repeats: int = 2):
+    """Drive ``runner`` to its end from its start ``repeats`` times: (state,
+    diags, the least seconds of the iterations alone, the runner's set-up
+    and hoisted eigh left out, the first run warming the libraries)."""
+    secs = []
+    for _ in range(repeats):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, diags = runner.run()
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+    return state, diags, min(secs)
+
+
+def async_phase(torch, kernel) -> dict:
+    """Phase 5c: the event-tape async executor (module docstring)."""
+    from repro_torch import checkpoint, netsim, obs
+    from repro_torch.core import engine, graph
+
+    t_phase = time.perf_counter()
+    H, T, ring, cfg = slice_inputs(torch)
+    cfg = dataclasses.replace(cfg, u_solver="sylvester", iters=SLICE_ITERS,
+                              telemetry=True)
+    star, cube = graph.star(8), graph.hypercube(3)
+    L, iters = H.shape[-1], cfg.iters
+    out = {"iters": iters, "L": L, "r": cfg.r}
+    kernel.reset_launches()
+    stats = engine.produce_stats(H, T)
+    torch.cuda.synchronize()
+    out["stats_launches"] = {"gram_tri": kernel.LAUNCHES["gram_tri"]}
+    check(kernel.LAUNCHES["gram_tri"] == 1,
+          f"async phase's stats pass launched gram_tri "
+          f"{kernel.LAUNCHES['gram_tri']} times, not once")
+
+    def finite(diags):
+        return all(bool(torch.isfinite(v.double()).all())
+                   for v in diags.values())
+
+    def deliveries(label, g, diags):
+        total = (diags["msgs_delivered"] + diags["msgs_stale"]
+                 + diags["msgs_dropped"])
+        check(bool((total == 2 * g.n_edges).all()),
+              f"{label}: deliveries per tick {total.tolist()} != 2E = "
+              f"{2 * g.n_edges}")
+
+    # (a) zero-delay tape == fit_dense, bit for bit, ring(8) and star(8),
+    # live and aged duals; one dense run first warms the libraries for the
+    # per-tick times
+    timed_run(torch, engine.make_runner(stats, ring, cfg), repeats=1)
+    per_tick = {}
+    for gname, g in (("ring", ring), ("star", star)):
+        dense = timed_run(torch, engine.make_runner(stats, g, cfg))
+        per_tick[f"dense_{gname}"] = dense[2] / iters
+        for aged in (False, True):
+            st, diags, secs = timed_run(torch, engine.make_runner(
+                stats, g, cfg, executor="async",
+                tape=netsim.zero_delay_tape(iters, g), aged_duals=aged))
+            label = f"zero-delay tape on {gname}(8), aged_duals={aged}"
+            same_run(torch, label, (st, {k: diags[k] for k in dense[1]}),
+                     dense[:2])
+            check(bool((diags["tape_cursor"].cpu()
+                        == torch.arange(iters)).all()),
+                  f"{label}: tape_cursor {diags['tape_cursor'].tolist()}")
+            per_tick[f"async_zero_delay_{gname}_aged{int(aged)}"] = \
+                secs / iters
+
+    # (b) a zero-attack AdversaryTape == its base channel tape
+    base = netsim.ChannelModel(delay="geometric", scale=2.0, drop=0.1,
+                               straggler_prob=0.2, seed=0).sample(ring, iters)
+    zero_adv = netsim.AdversaryModel().sample(ring, iters, L=L, r=cfg.r,
+                                              base=base)
+    runs = {}
+    for name, tape in (("channel", base), ("zero_attack", zero_adv)):
+        runs[name] = timed_run(torch, engine.make_runner(
+            stats, ring, cfg, executor="async", tape=tape, aged_duals=True))
+        per_tick[f"async_{name}_ring_aged1"] = runs[name][2] / iters
+        deliveries(f"{name} tape", ring, runs[name][1])
+    same_run(torch, "zero-attack AdversaryTape against its base tape",
+             runs["zero_attack"][:2], runs["channel"][:2])
+    out["channel_tape"] = netsim.tape_summary(base)
+    out["channel_counters_per_tick"] = {
+        k: runs["channel"][1][k].tolist()
+        for k in ("msgs_delivered", "msgs_stale", "msgs_dropped")}
+    del runs
+
+    # (c) fit(executor="async", channel=...) stopped after a segment and
+    # resumed == the uninterrupted fit, through interrupted_and_resumed; the
+    # interruption is the runner's first segment on the same sampled tape
+    # (a shorter cfg.iters would sample another tape)
+    channel = netsim.ChannelModel(delay="geometric", scale=2.0, drop=0.1,
+                                  straggler_prob=0.2, seed=1)
+    fit_kw = dict(executor="async", channel=channel, aged_duals=True)
+
+    def interrupt(ckpt):
+        runner = engine.make_runner(
+            engine.produce_stats(H, T), ring, cfg, executor="async",
+            tape=channel.sample(ring, iters), aged_duals=True)
+        state, diags = runner.run_segment(runner.init_state(), SLICE_EVERY)
+        checkpoint.save_run_checkpoint(
+            ckpt, state, diags, metadata={"executor": "async",
+                                          "iters": iters})
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_async_") as tmp:
+        out["resume"], _ = interrupted_and_resumed(
+            torch, "async fit on ring(8)", H, T, ring, cfg,
+            Path(tmp) / "c", interrupt=interrupt, **fit_kw)
+
+    # (d) at r = 1 and L = ASYNC_L, held against fp64 on the CPU: a lossy
+    # channel with stragglers, and coordinate_median under churn
+    small = engine.SufficientStats(
+        G=stats.G[:, :ASYNC_L, :ASYNC_L].contiguous(),
+        R=stats.R[:, :ASYNC_L].contiguous(), n=stats.n, t2=stats.t2)
+    small64 = engine.SufficientStats(
+        *(x.cpu().double() if torch.is_tensor(x) else x for x in small))
+    cfg1 = dataclasses.replace(cfg, r=1, u_solver="pcg", telemetry=False)
+    churn = netsim.AdversaryModel(churn=((3, 2, 7),), seed=0).sample(
+        ring, iters, L=ASYNC_L, r=1)
+    fp64 = {}
+    for name, tape, c in (
+            ("channel", base, cfg1),
+            ("coordinate_median_churn", churn,
+             dataclasses.replace(cfg1, aggregator="coordinate_median"))):
+        card = engine.fit_async(small, ring, c, tape)[1]
+        cpu = engine.fit_async(small64, ring, c, tape)[1]
+        for key, tol in ASYNC_FP64_TOL.items():
+            x, y = card[key].cpu().double(), cpu[key]
+            gap = float(((x - y).abs() / y.abs()).max())
+            fp64[f"{name}_{key}"] = gap
+            check(gap <= tol, f"async {name} {key} off the CPU's fp64 run "
+                  f"by {gap:.3g}, above {tol}")
+    out["max_rel_diff_vs_cpu_fp64"] = fp64
+    del small, small64
+
+    # (e) one sign-flipping agent at full width, every aggregator: finite,
+    # every key, deliveries 2E a tick.  The audit counts rejections under
+    # attack on hypercube(3) (degree 3), none on the clean tape; on a ring
+    # it cannot flag one attacker (of two neighbor candidates the median
+    # distance is their mean), so ring(8)'s counts are printed beside the
+    # final consensus of each aggregator
+    keys = set(engine.DIAG_KEYS) | set(engine.TELEMETRY_KEYS) | {
+        "tape_cursor", "comm_floats"}
+    attack = {}
+    for gname, g, aggs in (("ring", ring, ASYNC_AGGREGATORS),
+                           ("hypercube", cube, ASYNC_AGGREGATORS[1:3])):
+        tape = netsim.AdversaryModel(n_byzantine=1, kinds=("sign_flip",),
+                                     seed=0).sample(g, iters, L=L, r=cfg.r)
+        clean = netsim.zero_adversary_tape(netsim.zero_delay_tape(iters, g),
+                                           L, cfg.r)
+        for agg in aggs:
+            c = dataclasses.replace(cfg, aggregator=agg)
+            _, diags = engine.fit_async(stats, g, c, tape)
+            label = f"sign_flip on {gname}, {agg}"
+            check(finite(diags), f"{label}: not finite")
+            check(set(diags) == keys, f"{label}: keys {sorted(diags)}")
+            deliveries(label, g, diags)
+            row = {"consensus_final": float(diags["consensus"][-1]),
+                   "objective_final": float(diags["objective"][-1]),
+                   "agg_rejected": float(diags["agg_rejected"].sum())}
+            if agg != "mean":
+                _, cdiags = engine.fit_async(stats, g, c, clean)
+                row["agg_rejected_clean"] = float(
+                    cdiags["agg_rejected"].sum())
+                check(row["agg_rejected_clean"] == 0.0,
+                      f"{label}: the clean tape's audit rejected "
+                      f"{row['agg_rejected_clean']}")
+                if gname == "hypercube":
+                    check(row["agg_rejected"] > 0,
+                          f"{label}: the audit rejected nothing")
+            attack[f"{gname}_{agg}"] = row
+    out["sign_flip"] = attack
+    out["s_per_tick"] = per_tick
+    out["comm_floats_per_tick"] = obs.modeled_floats_per_iter(
+        "async", L=L, r=cfg.r, n_edges=ring.n_edges)
+    del H, T, stats
+    out["seconds"] = time.perf_counter() - t_phase
     return out
 
 
@@ -1626,6 +1837,10 @@ def main() -> int:
     slice_run = checkpoint_phase(torch, kernel)
     emit({"phase": "checkpointed_fit", "seconds": time.perf_counter() - t0,
           **slice_run})
+    torch.cuda.empty_cache()
+
+    # 5c. the event-tape async executor -----------------------------------------
+    emit({"phase": "async", **async_phase(torch, kernel)})
     torch.cuda.empty_cache()
 
     # 6. the backbone route at full recurrentgemma-2b width -------------------

@@ -20,6 +20,11 @@ Layout per checkpoint, the reference's (``repro.checkpoint.runstate``):
     <dir>/step_<k>/meta.json    step, key order, dtype strings, and the
                                 ``executor`` / ``iters`` audit metadata
 
+The ring buffers serialize through the same field walk: the colored
+executor's ``hist (staleness, m, L, r)``, the async executor's
+``hist (depth, m, L, r)`` and, with ``aged_duals``, ``lam_hist (depth, E,
+L, r)``, depth leading, as the reference lays them out.
+
 ``REPRO_CHECKPOINT_EXIT_AFTER_SAVE=<k>`` (env) hard-exits the process via
 ``os._exit(0)`` right after a save at step >= k: the crash-injection hook
 that kills a run at a real checkpoint boundary.
@@ -204,7 +209,8 @@ def remap_membership(state: Any, old_g: Any, new_g: Any) -> Any:
     * a dual follows its undirected edge: same orientation copies bitwise,
       a flipped orientation negates (the consensus problem is
       orientation-invariant up to the dual's sign), an edge with no
-      surviving counterpart starts from the zero initial dual;
+      surviving counterpart starts from the zero initial dual; the aged
+      duals' ring ``lam_hist`` is remapped slot by slot the same way;
     * ``k`` is untouched.
 
     ``remap_membership(state, g, g)`` returns the state unchanged.  Only
@@ -264,4 +270,8 @@ def remap_membership(state: Any, old_g: Any, new_g: Any) -> Any:
         h_out[:, :n_keep] = hist[:, :n_keep]
         h_out[:, n_keep:] = U_out[None, n_keep:]
         fields["hist"] = h_out
+    lam_hist = fields.get("lam_hist")
+    if lam_hist is not None:
+        fields["lam_hist"] = torch.stack(
+            [remap_lam(lam_hist[q]) for q in range(lam_hist.shape[0])])
     return type(state)(**fields)

@@ -1,8 +1,9 @@
 """The paper's algorithms on sufficient statistics: ELM primitives, solvers,
 consensus graphs, the neighbor exchange, the dense and colored consensus
 executors with their segmented ``Runner`` (the checkpointed runs of
-``repro_torch.checkpoint``), and the MTL-ELM / DMTL-ELM / FO-DMTL-ELM entry
-points."""
+``repro_torch.checkpoint``), the event-tape async executor of
+``repro_torch.netsim`` (``fit_async``), and the MTL-ELM / DMTL-ELM /
+FO-DMTL-ELM entry points."""
 
 from repro_torch.core.dmtl_elm import (
     DMTLELMConfig,
@@ -23,6 +24,7 @@ from repro_torch.core.engine import (
     Runner,
     RunState,
     SufficientStats,
+    fit_async,
     fit_colored,
     fit_dense,
     jacobian_schedule,
@@ -55,7 +57,8 @@ __all__ = [
     "Graph", "MTLELMConfig", "RunState", "Runner", "SufficientStats",
     "chain", "complete",
     "dmtl_elm_fit", "dmtl_elm_predict", "elm_fit", "elm_objective",
-    "elm_predict", "erdos", "expander", "fit", "fit_colored", "fit_dense",
+    "elm_predict", "erdos", "expander", "fit", "fit_async", "fit_colored",
+    "fit_dense",
     "fo_dmtl_elm_fit", "hypercube", "jacobian_schedule", "make_feature_map",
     "make_runner", "mtl_elm_fit",
     "mtl_elm_fit_from_stats", "mtl_elm_predict", "paper_fig2a",

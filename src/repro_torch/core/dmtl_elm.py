@@ -9,7 +9,8 @@ Jacobian (across agents) / Gauss-Seidel (U then A within an agent) proximal
 multi-block ADMM.  The data are reduced to
 :class:`~repro_torch.core.engine.SufficientStats` once, then
 ``engine.fit_dense`` (or the colored Gauss-Seidel sweep
-``engine.fit_colored``) runs the iterations.
+``engine.fit_colored``, or the event-tape async executor
+``engine.fit_async``) runs the iterations.
 
 Solver choice (cfg.u_solver — ``engine.U_SOLVERS``): "kron" (the paper's
 eq. 19), "sylvester" (exact, eigh(G_t) hoisted), "cg", "pcg" (Jacobi-
@@ -89,6 +90,9 @@ def fit(
     schedule=None,
     staleness: int = 0,
     order: str = "fixed",
+    tape=None,
+    channel=None,
+    aged_duals: bool = False,
     feature_map=None,
     use_kernel: bool = True,
     checkpoint_dir=None,
@@ -103,9 +107,16 @@ def fit(
     ``executor="dense"`` is the synchronous Jacobian sweep;
     ``executor="colored"`` the Gauss-Seidel colored sweep
     (``engine.fit_colored``, with ``schedule=``, ``staleness=`` and
-    ``order=``, which apply to it alone).  "async" comes with netsim
-    (ROADMAP queue 1 item 4), "sharded" with the sharded executors (item
-    5).  ``cfg.stats_precision`` picks the Gram pass's precision ("fp32" |
+    ``order=``, which apply to it alone); ``executor="async"`` the
+    event-driven asynchrony of ``repro_torch.netsim`` (``engine.fit_async``):
+    pass either a precomputed ``tape=`` (an ``EventTape`` or
+    ``AdversaryTape``) or a ``channel=`` (a ``ChannelModel``, sampled here
+    over ``cfg.iters`` ticks of ``g``); ``aged_duals=True`` also ships the
+    received duals through the lossy channel.  These three apply to
+    "async" alone.  "sharded" comes with the sharded executors (port slice
+    3, ROADMAP queue 1 item 5).  ``cfg.aggregator`` picks the neighbor
+    reduction of every executor (``engine.AGGREGATORS``).
+    ``cfg.stats_precision`` picks the Gram pass's precision ("fp32" |
     "bf16" | "int8").  The stats pass honors ``cfg.stats_producer``: with
     ``"fused"`` the first argument is the RAW per-agent input X
     (m, N, d_in) and ``feature_map=`` is required, the hidden layer running
@@ -138,9 +149,6 @@ def fit(
         raise ValueError(
             f"unknown executor {executor!r}; expected one of {EXECUTORS}"
         )
-    if executor == "async":
-        raise _not_ported("executor='async'",
-                          "netsim, ROADMAP queue 1 item 4")
     if executor == "sharded":
         raise _not_ported("executor='sharded'",
                           "port slice 3, ROADMAP queue 1 item 5")
@@ -174,9 +182,26 @@ def fit(
             "feature_map= only applies to cfg.stats_producer='fused', got "
             f"stats_producer={cfg.stats_producer!r}"
         )
-    if cfg.aggregator != "mean":
-        raise _not_ported(f"aggregator={cfg.aggregator!r}",
-                          "netsim, ROADMAP queue 1 item 4")
+    if cfg.aggregator not in engine.AGGREGATORS:
+        raise ValueError(
+            f"unknown cfg.aggregator {cfg.aggregator!r}; registered: "
+            f"{sorted(engine.AGGREGATORS)}"
+        )
+    if executor != "async" and (
+        tape is not None or channel is not None or aged_duals
+    ):
+        raise ValueError(
+            f"tape=/channel=/aged_duals= only apply to executor='async', "
+            f"got executor={executor!r}"
+        )
+    if executor == "async":
+        if (tape is None) == (channel is None):
+            raise ValueError(
+                "executor='async' needs exactly one of tape= (a precompiled "
+                "EventTape) or channel= (a ChannelModel to sample)"
+            )
+        if channel is not None:
+            tape = channel.sample(g, cfg.iters)
     if checkpoint_dir is None and (checkpoint_every or resume):
         raise ValueError(
             "checkpoint_every=/resume= need checkpoint_dir= to point at "
@@ -205,7 +230,8 @@ def fit(
         )
         runner = engine.make_runner(
             stats, g, cfg, executor=executor, schedule=schedule,
-            staleness=staleness, order=order)
+            staleness=staleness, order=order, tape=tape,
+            aged_duals=aged_duals)
         if checkpoint_dir is not None:
             state, diags = run_checkpointed(
                 runner, checkpoint_dir=checkpoint_dir,

@@ -1,4 +1,4 @@
-"""Stats-first consensus engine, dense executor (the single-device slice).
+"""Stats-first consensus engine: the single-device executors.
 
 All three of the paper's algorithms (MTL-ELM, DMTL-ELM, FO-DMTL-ELM) reduce
 to per-agent updates over the sufficient statistics
@@ -28,19 +28,28 @@ to per-agent updates over the sufficient statistics
 ``fit_colored``
     Gauss-Seidel colored sweeps over the same body: one color class at a
     time, neighbor sums re-gathered between classes, optional message
-    staleness and the Gauss-Southwell class order.  The async and sharded
-    executors come with netsim and the sharded executors (ROADMAP queue 1
-    items 4 and 5).
+    staleness and the Gauss-Southwell class order.
+``fit_async``
+    The event-tape executor of ``repro_torch.netsim``: per-edge delays,
+    drops, stragglers, Byzantine senders and membership churn replayed from
+    a precomputed tape around the same body.  The sharded executors come
+    with port slice 3 (ROADMAP queue 1 item 5).
+``AGGREGATORS``
+    ``cfg.aggregator``: the plain neighbor sum ("mean") or a robust center
+    ("trimmed_mean", "coordinate_median", "krum_like", or one added with
+    :func:`register_aggregator`) over the received views plus the agent's
+    own U, in every executor here.
 
 Telemetry (``cfg.telemetry=True``; the observability layer,
 ``repro_torch.obs``): every executor additionally reports, per iteration,
 
   resid_max       max |C U| over the edges (worst-agent consensus)
   msgs_delivered  fresh deliveries this iteration
-  msgs_stale      stale-served deliveries (colored sweeps, staleness > 1)
-  msgs_dropped    deliveries masked out (0: no executor here drops any)
-  agg_rejected    robust-aggregation rejections (0 on the mean path, the
-                  only aggregator ported)
+  msgs_stale      stale-served deliveries (colored sweeps with staleness
+                  > 1, tape ticks with age > 1)
+  msgs_dropped    deliveries masked out (the async executor's dead edges)
+  agg_rejected    robust-aggregation rejections
+                  (``exchange.aggregator_audit``; 0 on the mean path)
   comm_floats     the analytic floats-per-iteration model
                   (``repro_torch.obs.counters.modeled_floats_per_iter``)
 
@@ -332,7 +341,15 @@ class ConsensusConfig:
     gamma_cap: float = 1.0       # gamma = min(cap, delta * dual/primal) as in §IV
     # Lower bound on the adaptive gamma (0 = the paper's rule untouched).
     gamma_floor: float = 0.0
-    # Neighbor aggregation: only the paper's plain sum ("mean") is ported.
+    # Neighbor-aggregation rule for the consensus reduction (AGGREGATORS
+    # key): "mean" is the paper's plain sum of neighbors (every executor's
+    # segment-sum path, untouched); the robust rules ("trimmed_mean",
+    # "coordinate_median", "krum_like") replace the mean of received
+    # subspaces with a Byzantine-resilient center over the received views
+    # PLUS the receiver's own U (self-inclusion keeps degree-<=2
+    # reductions meaningful), scaled back by the live degree so
+    # ``agent_update`` is untouched.  Mask-aware: departed/absent neighbors
+    # are excluded from the candidate set rather than averaged in as zeros.
     aggregator: str = "mean"
     # Per-iteration comm/aggregator counters in the diagnostics (module
     # docstring, "Telemetry"); False keeps the diagnostics as they were.
@@ -470,6 +487,95 @@ def _resolve_tau_zeta(cfg: ConsensusConfig, deg: torch.Tensor, m: int, dtype):
 
 
 # --------------------------------------------------------------------------
+# Robust neighbor aggregation (Byzantine resilience)
+# --------------------------------------------------------------------------
+#
+# An aggregator replaces the plain mean of the views an agent received with
+# a Byzantine-resilient center.  Signature: ``fn(V, M) -> center`` where
+# ``V`` is ``(..., K, L, r)`` candidate views stacked on axis -3 and ``M``
+# is a ``(..., K)`` {0, 1} validity mask (dropped / departed / padded
+# candidates carry 0 and are EXCLUDED, never averaged in as zeros).  The
+# executors always append the receiver's OWN current U as one candidate and
+# rescale the center by the live degree, ``neigh_sum = deg_eff * center``,
+# so ``agent_update`` is untouched.  ``"mean"`` maps to None: executors keep
+# their segment-sum path.  All three robust rules are candidate-order
+# invariant (a per-coordinate sort, or an order-free score).
+
+
+def _sorted_candidates(V: torch.Tensor, M: torch.Tensor) -> torch.Tensor:
+    """(..., K, L, r) + mask -> per-coordinate ascending sort (..., L, r, K)
+    with invalid candidates pushed to the top via a +huge sentinel."""
+    Vk = torch.movedim(V, -3, -1)                      # (..., L, r, K)
+    Mk = M[..., None, None, :]                         # (..., 1, 1, K)
+    big = torch.finfo(V.dtype).max
+    return torch.sort(torch.where(Mk > 0, Vk, big), dim=-1).values
+
+
+def _agg_trimmed_mean(V: torch.Tensor, M: torch.Tensor) -> torch.Tensor:
+    """Coordinate-wise trimmed mean: drop the single smallest and largest
+    VALID value per coordinate (only when >= 3 candidates are valid, else
+    plain masked mean), average the rest."""
+    Vs = _sorted_candidates(V, M)                      # (..., L, r, K)
+    de = torch.sum(M, dim=-1)[..., None, None, None]   # (..., 1, 1, 1)
+    b = (de >= 3.0).to(V.dtype)
+    pos = torch.arange(V.shape[-3], dtype=V.dtype, device=V.device)
+    w = (pos >= b) & (pos < de - b)                    # (..., 1, 1, K)
+    kept = torch.where(w, Vs, 0.0)    # where, not a product: sentinel*0 = nan
+    cnt = torch.clamp(de - 2.0 * b, min=1.0)
+    return torch.sum(kept, dim=-1) / cnt[..., 0]
+
+
+def _agg_coordinate_median(V: torch.Tensor, M: torch.Tensor) -> torch.Tensor:
+    """Coordinate-wise median over the valid candidates (midpoint of the
+    two central order statistics when the valid count is even)."""
+    Vs = _sorted_candidates(V, M)                      # (..., L, r, K)
+    n = torch.clamp(torch.sum(M, dim=-1).to(torch.int64), min=1)
+    lo = ((n - 1) // 2)[..., None, None, None].expand(Vs.shape[:-1] + (1,))
+    hi = (n // 2)[..., None, None, None].expand(lo.shape)
+    vlo = torch.gather(Vs, -1, lo)[..., 0]
+    vhi = torch.gather(Vs, -1, hi)[..., 0]
+    return 0.5 * (vlo + vhi)
+
+
+def _agg_krum_like(V: torch.Tensor, M: torch.Tensor) -> torch.Tensor:
+    """Krum-flavored medoid: pick the single valid candidate minimizing the
+    summed squared distance to all valid candidates (the first such on
+    ties).  The center is one agent's ACTUAL subspace."""
+    Vf = V.reshape(V.shape[:-2] + (-1,))               # (..., K, L*r)
+    D = torch.sum((Vf[..., :, None, :] - Vf[..., None, :, :]) ** 2, dim=-1)
+    score = torch.sum(M[..., None, :] * D, dim=-1)     # (..., K)
+    big = torch.finfo(V.dtype).max
+    idx = torch.argmin(torch.where(M > 0, score, big), dim=-1)
+    idx_b = idx[..., None, None, None].expand(
+        V.shape[:-3] + (1,) + V.shape[-2:])
+    return torch.gather(V, -3, idx_b)[..., 0, :, :]
+
+
+AGGREGATORS: dict[str, Callable | None] = {
+    "mean": None,                # executors keep their plain-sum path
+    "trimmed_mean": _agg_trimmed_mean,
+    "coordinate_median": _agg_coordinate_median,
+    "krum_like": _agg_krum_like,
+}
+
+
+def register_aggregator(name: str, fn: Callable) -> None:
+    """Extension point: fn(V, M) -> center over the (..., K, L, r) candidate
+    axis with a (..., K) {0, 1} validity mask (see AGGREGATORS notes)."""
+    AGGREGATORS[name] = fn
+
+
+def resolve_aggregator(cfg: ConsensusConfig) -> Callable | None:
+    """cfg.aggregator -> the aggregation fn, or None for the plain mean."""
+    if cfg.aggregator not in AGGREGATORS:
+        raise ValueError(
+            f"unknown aggregator {cfg.aggregator!r}; registered: "
+            f"{sorted(AGGREGATORS)}"
+        )
+    return AGGREGATORS[cfg.aggregator]
+
+
+# --------------------------------------------------------------------------
 # The dense executor
 # --------------------------------------------------------------------------
 
@@ -490,12 +596,6 @@ class _EdgeSetup(NamedTuple):
 def _edge_setup(
     stats: SufficientStats, g: Graph, cfg: ConsensusConfig
 ) -> _EdgeSetup:
-    if cfg.aggregator != "mean":
-        raise NotImplementedError(
-            f"aggregator={cfg.aggregator!r}: the robust aggregators are not "
-            f"ported yet; they come with netsim, ROADMAP queue 1 item 4; "
-            f"only 'mean' is available"
-        )
     m, L = stats.G.shape[0], stats.G.shape[-1]
     d = stats.R.shape[-1]
     dtype, device = stats.G.dtype, stats.G.device
@@ -506,7 +606,8 @@ def _edge_setup(
     # scalar n/t2 get the agent axis every other leaf has
     stats = SufficientStats(G=stats.G, R=stats.R, n=per_agent(stats.n),
                             t2=per_agent(stats.t2))
-    ex = exchange.DenseExchange(g, dtype, device=device)
+    ex = exchange.DenseExchange(g, dtype, resolve_aggregator(cfg),
+                                device=device)
     tau_t, zeta_t = _resolve_tau_zeta(cfg, ex.deg, m, dtype)
     init = DenseState(
         U=torch.ones((m, L, cfg.r), dtype=dtype, device=device),
@@ -554,15 +655,24 @@ TELEMETRY_KEYS = ("resid_max", "msgs_delivered", "msgs_stale",
 
 
 class RunState(NamedTuple):
-    """The mid-run state the single-device executors advance."""
+    """The mid-run state the single-device executors advance, in the
+    reference's field order (``None`` leaves are not saved).
+
+      dense     hist = lam_hist = None
+      colored   hist (s, m, L, r) with staleness s: hist[j] = U published
+                at the end of iteration k - s + j (U^0 before the start)
+      async     hist (depth, m, L, r), the published-U ring buffer: slot
+                ``j % depth`` holds the U published at the end of tick j
+                (U^0 before); lam_hist (depth, E, L, r), the duals' ring,
+                iff aged_duals; ``k`` is the tape cursor
+    """
 
     U: torch.Tensor     # (m, L, r) stacked subspaces
     A: torch.Tensor     # (m, r, d) stacked heads
     lam: torch.Tensor   # (E, L, r) per-edge duals
-    k: int              # iterations done
-    # colored with staleness s: (s, m, L, r), hist[j] = U published at the
-    # end of iteration k - s + j (U^0 before the start); None otherwise
+    k: int              # iterations done (the absolute tick)
     hist: torch.Tensor | None = None
+    lam_hist: torch.Tensor | None = None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -612,19 +722,24 @@ class Runner:
         return self.run_segment(state, self.cfg.iters - state.k)
 
 
-def _diag_rows(rows: list, like: torch.Tensor, cfg: ConsensusConfig,
-               comm_floats: int, n_edges: int, fresh: float) -> dict:
-    """Stack per-iteration diagnostics rows into (n,) tensors; with
-    ``cfg.telemetry`` also ``resid_max`` and the constant counters of the
-    runner: ``fresh`` of the 2·E neighbor deliveries arrive fresh, the rest
-    stale, none is dropped, the mean aggregator rejects nothing, and
-    ``comm_floats`` floats move."""
-    keys = DIAG_KEYS + (("resid_max",) if cfg.telemetry else ())
-    diags = {
+def _stack_rows(rows: list, keys, like: torch.Tensor) -> dict:
+    """Stack per-iteration diagnostics rows into (n,) tensors."""
+    return {
         key: (torch.stack([r[key] for r in rows]) if rows
               else torch.zeros((0,), dtype=like.dtype, device=like.device))
         for key in keys
     }
+
+
+def _diag_rows(rows: list, like: torch.Tensor, cfg: ConsensusConfig,
+               comm_floats: int, n_edges: int, fresh: float) -> dict:
+    """Stack per-iteration diagnostics rows into (n,) tensors; with
+    ``cfg.telemetry`` also ``resid_max`` and the counters of the runner:
+    ``fresh`` of the 2·E neighbor deliveries arrive fresh, the rest stale,
+    none is dropped, and ``comm_floats`` floats move.  ``agg_rejected`` is
+    the rows' own audit on the robust path, and 0 on the mean path."""
+    keys = DIAG_KEYS + (("resid_max",) if cfg.telemetry else ())
+    diags = _stack_rows(rows, keys, like)
     if cfg.telemetry:
         for key, value in (("msgs_delivered", fresh),
                            ("msgs_stale", 2.0 * n_edges - fresh),
@@ -632,6 +747,9 @@ def _diag_rows(rows: list, like: torch.Tensor, cfg: ConsensusConfig,
                            ("comm_floats", comm_floats)):
             diags[key] = torch.full((len(rows),), float(value),
                                     dtype=like.dtype, device=like.device)
+        if rows and "agg_rejected" in rows[0]:
+            diags["agg_rejected"] = torch.stack(
+                [r["agg_rejected"] for r in rows])
     return diags
 
 
@@ -640,31 +758,38 @@ def make_runner(
     executor: str = "dense",
     schedule: Sequence[Sequence[int]] | None = None,
     staleness: int = 0, order: str = "fixed",
+    tape=None, aged_duals: bool = False,
 ) -> Runner:
     """The segmented :class:`Runner` of a single-device executor:
-    ``executor="dense"`` (behind :func:`fit_dense`) or ``"colored"``
-    (behind :func:`fit_colored`, with ``schedule``/``staleness``/``order``).
-    ``runner.run()`` reproduces the ``fit_*`` call; ``runner.run(state)``
-    starts from a given :class:`RunState`."""
-    if executor == "colored":
-        return _colored_runner(stats, g, cfg, schedule=schedule,
-                               staleness=staleness, order=order)
-    if executor in ("async", "sharded", "sharded_graph"):
+    ``executor="dense"`` (behind :func:`fit_dense`), ``"colored"`` (behind
+    :func:`fit_colored`, with ``schedule``/``staleness``/``order``) or
+    ``"async"`` (behind :func:`fit_async`, with ``tape`` and
+    ``aged_duals``).  ``runner.run()`` reproduces the ``fit_*`` call;
+    ``runner.run(state)`` starts from a given :class:`RunState`."""
+    if executor in ("sharded", "sharded_graph"):
         raise NotImplementedError(
-            f"executor={executor!r} is not ported yet: it comes with "
-            + ("netsim, ROADMAP queue 1 item 4" if executor == "async"
-               else "the sharded executors (port slice 3), ROADMAP queue 1 "
-                    "item 5")
+            f"executor={executor!r} is not ported yet: it comes with the "
+            f"sharded executors (port slice 3), ROADMAP queue 1 item 5"
         )
-    if executor != "dense":
+    if executor not in ("dense", "colored", "async"):
         raise ValueError(
             f"unknown executor {executor!r}; expected one of 'dense', "
             f"'colored', 'async', 'sharded', 'sharded_graph'"
         )
+    if executor != "async" and (tape is not None or aged_duals):
+        raise ValueError("tape=/aged_duals= only apply to executor='async'")
+    if executor == "colored":
+        return _colored_runner(stats, g, cfg, schedule=schedule,
+                               staleness=staleness, order=order)
     if schedule is not None or staleness != 0 or order != "fixed":
         raise ValueError(
             "schedule=/staleness=/order= only apply to executor='colored'"
         )
+    if executor == "async":
+        # imported here, as the reference does: netsim imports the engine
+        from repro_torch.netsim.executor import make_async_runner
+
+        return make_async_runner(stats, g, cfg, tape, aged_duals=aged_duals)
     es = _edge_setup(stats, g, cfg)
     stats = es.stats
     m = stats.G.shape[0]
@@ -677,16 +802,20 @@ def make_runner(
                             es.tau_t, es.zeta_t)
         U_new, A_new = agent_update(stats, AgentState(U, A), msgs, cfg,
                                     m_total=m, precomp=es.precomp)
+        # the solvers may return column-major layouts, and a BLAS call's
+        # last bits can follow the layout: the state is made contiguous, the
+        # layout a restored checkpoint has, before anything reads it, so a
+        # resumed run (and the async executor on a zero-delay tape) repeats
+        # this one bit for bit
+        U_new, A_new = U_new.contiguous(), A_new.contiguous()
         resid_old = es.ex.edge_diff(U)
         resid_new = es.ex.edge_diff(U_new)
         lam_new, gamma, primal = dual_step(lam, resid_old, resid_new, cfg)
         diag = _iteration_diag(stats, cfg, U_new, A_new, lam_new, resid_new,
                                gamma, primal)
-        # the solvers may return column-major layouts, and a BLAS call's
-        # last bits can follow the layout: the carried state is kept in the
-        # layout a restored checkpoint has, so a resumed run repeats the
-        # uninterrupted one bit for bit
-        return U_new.contiguous(), A_new.contiguous(), lam_new, diag
+        if cfg.telemetry and es.ex.agg is not None:
+            diag["agg_rejected"] = es.ex.audit(U)
+        return U_new, A_new, lam_new, diag
 
     def init_fn():
         return RunState(U=es.init.U, A=es.init.A, lam=es.init.lam, k=0)
@@ -788,6 +917,23 @@ def fit_colored(
     return DenseState(state.U, state.A, state.lam), diags
 
 
+def fit_async(
+    stats: SufficientStats, g: Graph, cfg: ConsensusConfig, tape, *,
+    aged_duals: bool = False,
+) -> tuple[DenseState, dict]:
+    """The ``repro_torch.netsim`` event-tape executor: the same
+    :func:`agent_update` under simulated asynchrony (per-edge delays,
+    dropped messages, stragglers, and with an ``AdversaryTape`` Byzantine
+    senders and membership churn).  ``netsim.zero_delay_tape`` gives
+    :func:`fit_dense` bit for bit, ``netsim.constant_tape(k)``
+    ``fit_colored(staleness=k, schedule=jacobian_schedule(m))``.  See
+    ``repro_torch.netsim.executor`` (imported here, so the engine does not
+    import netsim at load time)."""
+    from repro_torch.netsim.executor import fit_async as _fit_async
+
+    return _fit_async(stats, g, cfg, tape, aged_duals=aged_duals)
+
+
 class _Phase(NamedTuple):
     """What one color class needs, sliced once outside the loop."""
 
@@ -877,6 +1023,9 @@ def _colored_runner(
         lam_new, gamma, primal = dual_step(lam, resid_old, resid_new, cfg)
         diag = _iteration_diag(stats, cfg, U, A, lam_new, resid_new, gamma,
                                primal)
+        if cfg.telemetry and es.ex.agg is not None:
+            diag["agg_rejected"] = es.ex.audit(
+                U_start if staleness == 0 else hist[0])
         if staleness > 0:
             hist = torch.cat([hist[1:], U[None]], dim=0)
         return U, A, lam_new, hist, diag

@@ -13,8 +13,8 @@ iteration, per executor, against the subspace payload L·r:
 
 ``cfg.telemetry`` runs stamp this as the per-iteration ``comm_floats``
 diag key.  The same numbers as the reference's ``repro.obs.counters``
-(the port's tests hold the two equal); the port runs the dense and colored
-executors today.
+(the port's tests hold the two equal); the port runs the dense, colored
+and async executors today.
 """
 
 from __future__ import annotations

@@ -323,7 +323,10 @@ def test_remap_membership_matches_reference(staleness):
                                        rtol=1e-6, atol=0, err_msg=name)
     same = tck.remap_membership(state, g5, g5)
     for a, b in zip(same, state):
-        assert a == b if isinstance(a, int) else torch.equal(a, b)
+        if a is None or isinstance(a, int):
+            assert a == b
+        else:
+            assert torch.equal(a, b)
 
 
 # --------------------------------------------------------------------------

@@ -13,6 +13,8 @@ widened inputs, so it is held at fp32 level in every dtype, in norm below
 MLSTM_NORM_TOL as well.
 """
 
+import dataclasses
+
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -812,3 +814,134 @@ def test_traced_fit_on_the_card(gen, tmp_path):
     assert bool((d["msgs_delivered"] == 2 * g.n_edges).all())
     assert bool((d["comm_floats"] == obs.modeled_floats_per_iter(
         "dense", L=64, r=2, n_edges=g.n_edges)).all())
+
+
+def _async_problem(gen, g, L=96, N=300):
+    from repro_torch.core import engine
+
+    H = torch.randn(g.m, N, L, device="cuda", generator=gen) / L**0.5
+    T = torch.randn(g.m, N, 3, device="cuda", generator=gen)
+    return H, T, engine.produce_stats(H, T)
+
+
+@pytest.mark.parametrize("aged", [False, True])
+@pytest.mark.parametrize("graph", ["ring", "star"])
+def test_async_identities_on_the_card(gen, graph, aged):
+    """On the card, bit for bit: the zero-delay tape is ``fit_dense``, and
+    a zero-attack ``AdversaryTape`` its base channel tape (state and every
+    diagnostics row, telemetry on)."""
+    from repro_torch import netsim
+    from repro_torch.core import engine
+    from repro_torch.core import graph as graphs
+
+    g = graphs.ring(5) if graph == "ring" else graphs.star(6)
+    _, _, st = _async_problem(gen, g)
+    cfg = engine.ConsensusConfig(r=2, iters=10, tau=2.0, zeta=1.0,
+                                 telemetry=True)
+    dense = engine.fit_dense(st, g, cfg)
+    got = engine.fit_async(st, g, cfg, netsim.zero_delay_tape(10, g),
+                           aged_duals=aged)
+    for a, b in zip(got[0], dense[0]):
+        assert a.is_cuda and torch.equal(a, b)
+    for key in dense[1]:
+        assert torch.equal(got[1][key], dense[1][key]), key
+    base = netsim.ChannelModel(delay="geometric", scale=1.5, drop=0.2,
+                               straggler_prob=0.2, seed=2).sample(g, 10)
+    want = engine.fit_async(st, g, cfg, base, aged_duals=aged)
+    got = engine.fit_async(st, g, cfg, netsim.AdversaryModel().sample(
+        g, 10, L=96, r=2, base=base), aged_duals=aged)
+    for a, b in zip(got[0], want[0]):
+        assert torch.equal(a, b)
+    for key in want[1]:
+        assert torch.equal(got[1][key], want[1][key]), key
+
+
+@pytest.mark.parametrize("aggregator", ["mean", "coordinate_median"])
+def test_async_checkpointed_fit_resumes_bitwise_on_the_card(gen, tmp_path,
+                                                            aggregator):
+    """An aged-duals async fit on a sign-flip + churn tape, stopped after
+    its first segment and resumed, equals the uninterrupted fit bit for
+    bit on the card."""
+    from repro_torch import checkpoint, netsim
+    from repro_torch.core import dmtl_elm, engine
+    from repro_torch.core import graph as graphs
+
+    g = graphs.star(6)
+    H, T, st = _async_problem(gen, g)
+    cfg = engine.ConsensusConfig(r=2, iters=10, tau=2.0, zeta=1.0,
+                                 aggregator=aggregator)
+    base = netsim.ChannelModel(delay="geometric", scale=1.0, drop=0.2,
+                               seed=3).sample(g, 10)
+    tape = netsim.AdversaryModel(n_byzantine=1, kinds=("sign_flip",),
+                                 churn=((2, 3, 7),), seed=1).sample(
+        g, 10, L=96, r=2, base=base)
+    kw = dict(executor="async", tape=tape, aged_duals=True)
+    before = kernel.LAUNCHES["gram_tri"]
+    want = dmtl_elm.fit(H, T, g, cfg, **kw)
+    assert kernel.LAUNCHES["gram_tri"] == before + 1
+    runner = engine.make_runner(st, g, cfg, **kw)
+    state, diags = runner.run_segment(runner.init_state(), 4)
+    checkpoint.save_run_checkpoint(tmp_path, state, diags,
+                                   metadata={"executor": "async",
+                                             "iters": 10})
+    got = dmtl_elm.fit(H, T, g, cfg, checkpoint_dir=tmp_path,
+                       checkpoint_every=3, resume=True, **kw)
+    for a, b in zip(got[0], want[0]):
+        assert a.is_cuda and torch.equal(a, b)
+    for key in want[1]:
+        assert torch.equal(got[1][key], want[1][key]), key
+
+
+def test_async_robust_aggregators_and_counters_on_the_card(gen):
+    """Every aggregator runs on the card under a sign-flip + churn tape,
+    finite with every key; deliveries add up to 2E every tick; and the
+    executor adds no host sync to a tick beyond those of the update body
+    (the dense executor's per iteration: the r x r eigh and solve check
+    their status on the host); a segment's tape upload syncs once an
+    array, whatever its length."""
+    import warnings
+
+    from repro_torch import netsim
+    from repro_torch.core import engine
+    from repro_torch.core import graph as graphs
+
+    g = graphs.hypercube(3)
+    _, _, st = _async_problem(gen, g)
+    cfg = engine.ConsensusConfig(r=2, iters=8, tau=2.0, zeta=1.0,
+                                 telemetry=True)
+    tape = netsim.AdversaryModel(n_byzantine=1, kinds=("sign_flip",),
+                                 churn=((5, 2, 6),), seed=0).sample(
+        g, 8, L=96, r=2)
+    for agg in ("mean", "trimmed_mean", "coordinate_median", "krum_like"):
+        state, diags = engine.fit_async(
+            st, g, dataclasses.replace(cfg, aggregator=agg), tape,
+            aged_duals=True)
+        assert torch.isfinite(state.U).all(), agg
+        assert all(torch.isfinite(v.double()).all() for v in diags.values())
+        total = (diags["msgs_delivered"] + diags["msgs_stale"]
+                 + diags["msgs_dropped"])
+        assert bool((total == 2 * g.n_edges).all()), agg
+        if agg != "mean":
+            assert float(diags["agg_rejected"].sum()) > 0, agg
+
+    def syncs(runner, n):
+        state = runner.init_state()
+        runner.run_segment(state, n)    # the libraries' first-call syncs
+        torch.cuda.synchronize()
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                runner.run_segment(state, n)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        return sum("synchroniz" in str(w.message) for w in caught)
+
+    cfg = dataclasses.replace(cfg, aggregator="coordinate_median")
+    dense = engine.make_runner(st, g, cfg)
+    runner = engine.make_runner(st, g, cfg, executor="async", tape=tape,
+                                aged_duals=True)
+    syncs(dense, 2)     # takes the one sync of torch's first measurement
+    per_tick = (syncs(runner, 8) - syncs(runner, 2)) / 6
+    per_iteration = (syncs(dense, 8) - syncs(dense, 2)) / 6
+    assert per_tick == per_iteration, (per_tick, per_iteration)

@@ -153,23 +153,43 @@ def test_fo_dmtl_and_lipschitz_match_reference():
 def test_fit_rejects_what_later_slices_bring():
     """executor="colored" came with slice 2 (tested below), checkpointing,
     telemetry, tracing and health with ROADMAP queue 1 item 3
-    (``test_torch_obs.py``, ``test_torch_checkpoint.py``); the async
-    executor and the robust aggregators still raise, naming netsim's
-    ROADMAP item, and the colored-only keywords are refused elsewhere with
-    the reference's messages."""
+    (``test_torch_obs.py``, ``test_torch_checkpoint.py``), the async
+    executor and the robust aggregators with netsim (item 4,
+    ``test_torch_netsim.py``): they run, an unknown aggregator and an async
+    call without exactly one of tape=/channel= are refused as the
+    reference refuses them, "sharded" still raises naming slice 3, and the
+    colored-only keywords are refused elsewhere with the reference's
+    messages."""
+    from repro_torch import netsim
+
     H = torch.ones(4, 6, 5)
     T = torch.ones(4, 6, 1)
     g, cfg = tg.ring(4), te.ConsensusConfig(r=2, iters=1)
-    with pytest.raises(NotImplementedError, match="item 4"):
-        td.fit(H, T, g, cfg, executor="async")
+    st, diags = td.fit(H, T, g, cfg, executor="async",
+                       channel=netsim.ChannelModel(drop=0.5, seed=1))
+    assert torch.isfinite(st.U).all() and "tape_cursor" in diags
+    for kw in ({}, dict(tape=netsim.zero_delay_tape(1, g),
+                        channel=netsim.ChannelModel())):
+        with pytest.raises(ValueError, match="exactly one of"):
+            td.fit(H, T, g, cfg, executor="async", **kw)
+    with pytest.raises(ValueError, match="only apply to executor='async'"):
+        td.fit(H, T, g, cfg, tape=netsim.zero_delay_tape(1, g))
     with pytest.raises(NotImplementedError, match="slice 3"):
         td.fit(H, T, g, cfg, executor="sharded")
     with pytest.raises(ValueError, match="unknown executor"):
         td.fit(H, T, g, cfg, executor="gossip")
     with pytest.raises(ValueError, match="feature_map"):
         td.fit(H, T, g, dataclasses.replace(cfg, stats_producer="fused"))
-    with pytest.raises(NotImplementedError, match="item 4"):
-        td.fit(H, T, g, dataclasses.replace(cfg, aggregator="krum_like"))
+    st, _ = td.fit(H, T, g, dataclasses.replace(cfg, aggregator="krum_like"))
+    assert torch.isfinite(st.U).all()
+    bad = dataclasses.replace(cfg, aggregator="median_of_means")
+    for fit, args in ((td.fit, (H, T, g, bad)),
+                      (jd.fit, (jnp.ones((4, 6, 5)), jnp.ones((4, 6, 1)),
+                                jg.ring(4), je.ConsensusConfig(
+                                    r=2, iters=1,
+                                    aggregator="median_of_means")))):
+        with pytest.raises(ValueError, match="unknown cfg.aggregator"):
+            fit(*args)
     for kw, match in ((dict(staleness=1), "staleness= only applies"),
                       (dict(order="gauss_southwell"), "order= only applies"),
                       (dict(schedule=((0, 1), (2, 3))),

@@ -35,7 +35,7 @@ def test_scan_covers_the_package():
 
 
 @pytest.mark.parametrize("part", ["checkpoint", "obs", "baselines",
-                                  "configs/paper.py"])
+                                  "configs/paper.py", "netsim"])
 def test_scan_covers_the_checkpointed_slice(part):
     target = ROOT / "src" / "repro_torch" / part
     files = [target] if target.suffix else sorted(target.glob("*.py"))
