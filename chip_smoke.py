@@ -83,6 +83,22 @@ Phases (any failure raises and the script exits non-zero):
      full width under every aggregator, finite with every key, the audit's
      rejections on hypercube(3) and none on the clean tape; deliveries sum
      to 2E every tick; the seconds per tick of each executor;
+  5d. the sharded executors (``repro_torch.core.mesh``): 8 ranks on the
+     card over gloo (each message copied through a host buffer), one agent
+     each, on phase 4's inputs: (a) ``fit(executor="sharded")`` on ring(8)
+     from each rank's own rows of H and T, one ``gram_tri`` launch per rank,
+     its G and R against row t of the parent's 8-agent launch; (b) at
+     r = 8, 12 iterations, the Sylvester solve: ``fit_sharded`` on the
+     (8,) and (2, 4) tori, ``fit_sharded_graph`` on star(8) and
+     hypercube(3), Jacobian and Gauss-Seidel (its chromatic schedule), and
+     bit for bit a zero-delay tape (live and aged duals) against the
+     no-tape run, a zero-attack tape against its base channel tape, and
+     the channel run stopped at 4 and resumed from rank 0's checkpoint;
+     each, also at r = 1, against ``fit_dense``/``fit_colored`` on the
+     card in the objective and U·A (``SHARD_DENSE_TOL`` at r = 1, beside
+     the dense run's own gap when G moves by an ulp), with seconds per
+     iteration beside theirs; (c) at r = 1 and L = 512 (PCG), the ring and the
+     Gauss-Seidel cube against fp64 on the CPU (``SHARD_FP64_TOL``);
   6. the backbone route at full recurrentgemma-2b width (26 layers, bf16
      compute, fp32 weights from a seeded generator): 4 agents, 2 batches of
      8 x 4096 tokens each, pooled features into fused L = 2048 statistics,
@@ -1401,6 +1417,337 @@ def async_phase(torch, kernel) -> dict:
     return out
 
 
+# phase 5d: the sharded executors, one agent per rank.  SHARD_WORLD ranks
+# share the one card over gloo (NCCL refuses two ranks on one device), each
+# CUDA tensor message copied through a host buffer, on phase 4's inputs
+# (slice_inputs) at r = SHARD_R; the fp64 runs take H's first SHARD_L64
+# columns at r = 1 with PCG, held to the limits phase 5c's fp64 runs meet
+# on an H100 (readings 1.4e-7 and 4.4e-4, PERF.md §6).  SHARD_DENSE_TOL
+# holds the sharded runs against fit_dense / fit_colored on the card at
+# full width and r = 1, in the objective and in U·A per agent.  Beside
+# each pair the script prints the dense executor's own gap when G is
+# multiplied by 1 + 2^-23 (its entries moved by at most an ulp): the size
+# of the roundoff that one agent's eigh and solves, rounding otherwise than
+# the batched ones, can leave.  At r = 1 on an NVIDIA H100 80GB HBM3 at
+# 700 W the sharded objective read 1.8e-7 to 4.4e-7 and U·A 1.6e-2 to
+# 4.6e-2, the dense runs' one-ulp gaps 7.1e-7 to 2.6e-6 and 0.18 to 0.21
+# (PERF.md §6): the fp32 Sylvester solve leaves U·A to roundoff at this
+# width, which the objective, flat at the optimum, does not see, and the
+# U·A limit sits between the sound readings and the one-ulp ones.  At
+# r = SHARD_R the all-ones start is symmetric in U's columns, so both
+# trajectories follow roundoff: there the gaps are printed, not checked.
+SHARD_WORLD, SHARD_R, SHARD_L64 = 8, 8, 512
+SHARD_FP64_TOL = {"objective": 1e-6, "consensus": 1e-3}
+SHARD_DENSE_TOL = {"objective": 1e-5, "UA": 1e-1}
+SHARD_TIMEOUT_S = 300.0
+# each sharded run of phase 5d and the card's executor it is held against
+SHARD_DENSE_PAIRS = {"torus8": "ring", "torus24": "torus24", "star8": "star8",
+                     "cube": "cube", "cube_gauss_seidel": "cube_gauss_seidel"}
+
+
+def shard_config():
+    from repro_torch.core import engine
+
+    return engine.ConsensusConfig(r=SHARD_R, mu1=1.0, mu2=1.0, tau=2.0,
+                                  zeta=1.0, iters=SLICE_ITERS,
+                                  u_solver="sylvester", telemetry=True)
+
+
+def sharded_world(rank: int, t_spawn: float, tmp: str) -> dict:
+    """Phase 5d's rank ``rank`` (module level: a spawned rank imports it).
+    Keeps its agent's rows of H and T only, runs every sharded case, and
+    returns what the parent checks, on the CPU."""
+    import torch
+
+    from repro_torch import checkpoint, netsim, obs
+    from repro_torch.core import dmtl_elm, engine, graph
+    from repro_torch.core.mesh import make_mesh
+    from repro_torch.kernels.gram import kernel
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    H, T, _, _ = slice_inputs(torch)
+    H, T = H[rank:rank + 1].clone(), T[rank:rank + 1].clone()
+    torch.cuda.empty_cache()
+    mesh = make_mesh((SHARD_WORLD,), ("a",), device="cuda")
+    mesh24 = make_mesh((2, SHARD_WORLD // 2), ("pod", "data"), device="cuda")
+    ring, star, cube = (graph.ring(SHARD_WORLD), graph.star(SHARD_WORLD),
+                        graph.hypercube(3))
+    cfg = shard_config()
+    iters = cfg.iters
+
+    def cpu(state, diags):
+        return {"U": state.U.cpu(), "A": state.A.cpu(),
+                "diags": {k: v.cpu() for k, v in diags.items()}}
+
+    out = {"rank": rank, "transport": mesh.transport,
+           "ready_s": time.time() - t_spawn}
+    # (a) the entry point on this agent's own rows: one gram_tri launch
+    kernel.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    U, A, diags = dmtl_elm.fit(H, T, ring, cfg, executor="sharded",
+                               mesh=mesh, agent_axes=("a",))
+    torch.cuda.synchronize()
+    out["fit_s"] = time.perf_counter() - t0
+    out["fit_launches"] = dict(kernel.LAUNCHES)
+    out["fit_ring"] = {"U": U.cpu(), "A": A.cpu(),
+                       "diags": {k: v.cpu() for k, v in diags.items()}}
+    st = engine.produce_stats(H, T)
+    out["G"], out["R"] = st.G[0].cpu(), st.R[0].cpu()
+    L = H.shape[-1]
+    del H, T
+
+    # (b) every executor at full width, each run twice (the least time)
+    base = netsim.ChannelModel(delay="geometric", scale=2.0, drop=0.1,
+                               straggler_prob=0.2, seed=0).sample(cube, iters)
+    zero = netsim.zero_delay_tape(iters, cube)
+    cases = {
+        "torus8": dict(g=None, mesh=mesh, agent_axes=("a",)),
+        "torus24": dict(g=None, mesh=mesh24, agent_axes=("pod", "data")),
+        "star8": dict(g=star, executor="sharded_graph"),
+        "cube": dict(g=cube, executor="sharded_graph"),
+        "cube_gauss_seidel": dict(g=cube, executor="sharded_graph",
+                                  schedule=cube.chromatic_schedule()),
+        "cube_zero_delay_aged0": dict(g=cube, executor="sharded_graph",
+                                      tape=zero),
+        "cube_zero_delay_aged1": dict(g=cube, executor="sharded_graph",
+                                      tape=zero, aged_duals=True),
+        "cube_channel": dict(g=cube, executor="sharded_graph", tape=base,
+                             aged_duals=True),
+        "cube_zero_attack": dict(
+            g=cube, executor="sharded_graph", aged_duals=True,
+            tape=netsim.zero_adversary_tape(base, L, cfg.r)),
+    }
+
+    def runner_of(kw, c=cfg):
+        kw = {"executor": "sharded", "mesh": mesh, "agent_axes": ("a",),
+              **kw}
+        return engine.make_runner(st, kw.pop("g"), c, **kw)
+
+    # the untaped runs twice (the least time), the taped ones once
+    runs, secs = {}, {}
+    for name, kw in cases.items():
+        runner = runner_of(dict(kw))
+        times = []
+        for _ in range(1 if "tape" in kw else 2):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, diags = runner.run()
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        runs[name] = cpu(state, diags)
+        secs[name] = min(times) / iters
+    out["runs"], out["s_per_iter"] = runs, secs
+    cfg_r1 = dataclasses.replace(cfg, r=1)
+    out["r1"] = {name: cpu(*runner_of(dict(cases[name]), cfg_r1).run())
+                 for name in SHARD_DENSE_PAIRS}
+
+    # (c) the channel run stopped at SLICE_EVERY and resumed from rank 0's
+    # checkpoint of the gathered state
+    every = SLICE_EVERY
+    ckpt = Path(tmp) / "ckpt"
+    runner = runner_of(dict(cases["cube_channel"]))
+    state, diags = runner.run_segment(runner.init_state(), every)
+    if rank == 0:
+        checkpoint.save_run_checkpoint(
+            ckpt, state, diags, metadata={"executor": runner.executor,
+                                          "iters": iters})
+    mesh.barrier()
+    out["checkpoint_bytes"] = sum(
+        f.stat().st_size for f in (ckpt / f"step_{every:08d}").iterdir())
+    tracer = obs.Tracer()
+    with obs.use(tracer):
+        state, diags = checkpoint.run_checkpointed(
+            runner_of(dict(cases["cube_channel"])), checkpoint_dir=ckpt,
+            checkpoint_every=every, resume=True)
+    out["resumed"] = cpu(state, diags)
+    out["restore_s"] = [x / 1e3 for x in spans_ms(tracer, "restore")]
+    out["snapshot_s"] = [x / 1e3 for x in spans_ms(tracer, "snapshot")]
+
+    # (d) r = 1 at SHARD_L64 with PCG, for the fp64 references on the CPU
+    L64 = SHARD_L64
+    small = engine.SufficientStats(
+        G=st.G[:, :L64, :L64].contiguous(), R=st.R[:, :L64].contiguous(),
+        n=st.n, t2=st.t2)
+    cfg1 = dataclasses.replace(cfg, r=1, u_solver="pcg", telemetry=False)
+    out["fp64_ring"] = engine.fit_sharded(small, mesh, ("a",), cfg1)[2]
+    out["fp64_cube_gauss_seidel"] = engine.fit_sharded_graph(
+        small, mesh, ("a",), cube, cfg1,
+        schedule=cube.chromatic_schedule())[2]
+    for key in ("fp64_ring", "fp64_cube_gauss_seidel"):
+        out[key] = {k: v.cpu() for k, v in out[key].items()}
+    return out
+
+
+def sharded_phase(torch, kernel) -> dict:
+    """Phase 5d: the sharded executors, one agent per rank (module
+    docstring)."""
+    from repro_torch.core import engine, graph
+    from repro_torch.core.mesh import spawn
+
+    t_phase = time.perf_counter()
+    H, T, _, _ = slice_inputs(torch)
+    kernel.reset_launches()
+    stats = engine.produce_stats(H, T)
+    L = H.shape[-1]
+    del H, T
+    cfg = shard_config()
+    iters = cfg.iters
+    ring, star, cube = (graph.ring(SHARD_WORLD), graph.star(SHARD_WORLD),
+                        graph.hypercube(3))
+    torus24 = graph.Graph(m=SHARD_WORLD, edges=tuple(sorted(
+        engine.torus_edges([2, SHARD_WORLD // 2]))))
+    gs = cube.chromatic_schedule()
+    out = {"world": SHARD_WORLD, "L": L, "r": cfg.r, "iters": iters,
+           "L64": SHARD_L64}
+
+    # the fp64 references on the CPU, and fit_dense / fit_colored on the
+    # card on the same stats (one warm-up run first)
+    L64 = SHARD_L64
+    small64 = engine.SufficientStats(
+        G=stats.G[:, :L64, :L64].cpu().double(),
+        R=stats.R[:, :L64].cpu().double(), n=stats.n.cpu(),
+        t2=stats.t2.cpu())
+    cfg1 = dataclasses.replace(cfg, r=1, u_solver="pcg", telemetry=False)
+    fp64 = {"fp64_ring": engine.fit_dense(small64, ring, cfg1)[1],
+            "fp64_cube_gauss_seidel": engine.fit_colored(
+                small64, cube, cfg1, schedule=gs, staleness=0)[1]}
+    del small64
+    timed_run(torch, engine.make_runner(stats, ring, cfg), repeats=1)
+    graphs = {"ring": ring, "torus24": torus24, "star8": star, "cube": cube,
+              "cube_gauss_seidel": cube}
+    def cpu(st, diags):
+        return {"U": st.U.cpu(), "A": st.A.cpu(),
+                "diags": {k: v.cpu() for k, v in diags.items()}}
+
+    # each dense run also on G·(1 + 2^-23), the roundoff witness
+    stats_ulp = stats._replace(G=stats.G * (1 + 2**-23))
+    cfg_r1 = dataclasses.replace(cfg, r=1)
+    dense, dense_s, dense_r1, dense_ulp, dense_r1_ulp = {}, {}, {}, {}, {}
+    for name, g in graphs.items():
+        kw = ({"executor": "colored", "schedule": gs}
+              if name == "cube_gauss_seidel" else {})
+        st, diags, secs = timed_run(torch, engine.make_runner(stats, g, cfg,
+                                                              **kw))
+        dense[name] = cpu(st, diags)
+        dense_s[name] = secs / iters
+        dense_r1[name] = cpu(*engine.make_runner(stats, g, cfg_r1,
+                                                 **kw).run())
+        dense_r1_ulp[name] = cpu(*engine.make_runner(stats_ulp, g, cfg_r1,
+                                                     **kw).run())
+    dense_ulp["ring"] = cpu(*engine.make_runner(stats_ulp, ring, cfg).run())
+    del stats_ulp
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_sharded_") as tmp:
+        t0 = time.perf_counter()
+        ranks = spawn(sharded_world, SHARD_WORLD, backend="gloo",
+                      device="cuda", timeout_s=SHARD_TIMEOUT_S,
+                      args=(time.time(), tmp))
+        out["world_s"] = time.perf_counter() - t0
+    res = ranks[0]
+    out["transport"] = res["transport"]
+    out["gram_tri_launches_per_rank"] = [
+        r["fit_launches"].get("gram_tri", 0) for r in ranks]
+    for t, r in enumerate(ranks):
+        check(r["rank"] == t and r["transport"] == res["transport"],
+              f"rank {t}: {r['rank']}, transport {r['transport']}")
+        check(r["fit_launches"].get("gram_tri") == 1
+              and sum(r["fit_launches"].values()) == 1,
+              f"rank {t}'s sharded fit launched {r['fit_launches']}, not "
+              f"gram_tri once")
+    # each rank's statistics against row t of the parent's 8-agent launch
+    stats_err, stats_equal = [], []
+    for t, r in enumerate(ranks):
+        for leaf in ("G", "R"):
+            want = getattr(stats, leaf)[t].cpu()
+            stats_equal.append(bool(torch.equal(r[leaf], want)))
+            stats_err.append(rel_err(torch, r[leaf], want)[1])
+    out["stats_bit_equal"] = all(stats_equal)
+    out["stats_max_rel_err"] = max(stats_err)
+    check(out["stats_max_rel_err"] <= TOL["fp32"],
+          f"a rank's statistics off the 8-agent gram_tri by "
+          f"{out['stats_max_rel_err']:.3g}")
+    # every rank returns the same gathered state and diagnostics
+    for r in ranks[1:]:
+        for name in res["runs"]:
+            check(torch.equal(r["runs"][name]["U"], res["runs"][name]["U"])
+                  and all(torch.equal(v, res["runs"][name]["diags"][k])
+                          for k, v in r["runs"][name]["diags"].items()),
+                  f"rank {r['rank']}'s {name} differs from rank 0's")
+
+    def same(got, want):
+        return (torch.equal(got["U"], want["U"])
+                and torch.equal(got["A"], want["A"])
+                and all(torch.equal(got["diags"][k], v)
+                        for k, v in want["diags"].items()))
+
+    runs = res["runs"]
+    out["bitwise"] = {
+        "zero_delay_tape_live_duals": same(runs["cube_zero_delay_aged0"],
+                                           runs["cube"]),
+        "zero_delay_tape_aged_duals": same(runs["cube_zero_delay_aged1"],
+                                           runs["cube"]),
+        "zero_attack_tape": same(runs["cube_zero_attack"],
+                                 runs["cube_channel"]),
+        "resumed_at_%d" % SLICE_EVERY: same(res["resumed"],
+                                              runs["cube_channel"]),
+    }
+    for name, ok in out["bitwise"].items():
+        check(ok, f"sharded identity {name} is not bit for bit")
+    keys = set(engine.DIAG_KEYS) | set(engine.TELEMETRY_KEYS) | {
+        "comm_floats"}
+    for name, run in runs.items():
+        check(keys <= set(run["diags"]) and all(
+            bool(torch.isfinite(v.double()).all())
+            for v in run["diags"].values()),
+            f"sharded {name}: keys {sorted(run['diags'])} or not finite")
+    # against fp64 on the CPU, r = 1
+    gaps = {}
+    for name, want in fp64.items():
+        for key, tol in SHARD_FP64_TOL.items():
+            x, y = res[name][key].double(), want[key].double()
+            gap = float(((x - y).abs() / y.abs()).max())
+            gaps[f"{name}_{key}"] = gap
+            check(gap <= tol, f"sharded {name} {key} off the CPU's fp64 run "
+                  f"by {gap:.3g}, above {tol}")
+    out["max_rel_diff_vs_cpu_fp64"] = gaps
+    # against fit_dense / fit_colored on the card: checked at r = 1, read at
+    # r = 8 beside the dense executor's gap to its reversed edge list
+    def gap(got, want):
+        x = got["diags"]["objective"].double()
+        y = want["diags"]["objective"].double()
+        ua, ua_d = got["U"] @ got["A"], want["U"] @ want["A"]
+        return {"objective": float(((x - y).abs() / y.abs()).max()),
+                "UA": float(((ua - ua_d).flatten(1).norm(dim=1)
+                             / ua_d.flatten(1).norm(dim=1)).max())}
+
+    r1_gaps, r1_ulp = {}, {}
+    for name, dname in SHARD_DENSE_PAIRS.items():
+        r1_gaps[name] = gap(res["r1"][name], dense_r1[dname])
+        r1_ulp[dname] = gap(dense_r1_ulp[dname], dense_r1[dname])
+        for key, tol in SHARD_DENSE_TOL.items():
+            check(r1_gaps[name][key] <= tol,
+                  f"sharded {name} at r = 1 {key} off the card's dense run "
+                  f"by {r1_gaps[name][key]:.3g}, above {tol}")
+    r8_gaps = {name: gap(runs[name], dense[dname])
+               for name, dname in SHARD_DENSE_PAIRS.items()}
+    r8_gaps["fit_ring"] = gap(res["fit_ring"], dense["ring"])
+    r8_gaps["dense_ring_G_times_1_plus_2^-23"] = gap(dense_ulp["ring"],
+                                                     dense["ring"])
+    out["r1_rel_diff_vs_card_dense"] = r1_gaps
+    out["r1_dense_G_times_1_plus_2^-23"] = r1_ulp
+    out[f"r{cfg.r}_rel_diff_vs_card_dense_unchecked"] = r8_gaps
+    out["s_per_iter"] = res["s_per_iter"]
+    out["dense_s_per_iter"] = dense_s
+    out["fit_s"] = [r["fit_s"] for r in ranks]
+    out["ranks_ready_s"] = [r["ready_s"] for r in ranks]
+    out.update(checkpoint_bytes=res["checkpoint_bytes"],
+               snapshot_s=res["snapshot_s"], restore_s=res["restore_s"])
+    out["seconds"] = time.perf_counter() - t_phase
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -1841,6 +2188,10 @@ def main() -> int:
 
     # 5c. the event-tape async executor -----------------------------------------
     emit({"phase": "async", **async_phase(torch, kernel)})
+    torch.cuda.empty_cache()
+
+    # 5d. the sharded executors, one agent per rank -----------------------------
+    emit({"phase": "sharded", **sharded_phase(torch, kernel)})
     torch.cuda.empty_cache()
 
     # 6. the backbone route at full recurrentgemma-2b width -------------------

@@ -23,7 +23,13 @@ Layout per checkpoint, the reference's (``repro.checkpoint.runstate``):
 The ring buffers serialize through the same field walk: the colored
 executor's ``hist (staleness, m, L, r)``, the async executor's
 ``hist (depth, m, L, r)`` and, with ``aged_duals``, ``lam_hist (depth, E,
-L, r)``, depth leading, as the reference lays them out.
+L, r)``, depth leading, as the reference lays them out.  The sharded
+executors' state is the reference's too, agents leading: ``lam (m,
+n_axes, L, r)`` (torus) or ``(m, n_slots, L, r)`` (compiled graph), with a
+tape ``hist (m, depth, L, r)`` and ``lam_hist (m, depth, n_slots, L, r)``.
+Every rank of a sharded run holds that gathered state; rank 0 alone writes
+it (``runner.mesh``), every rank waits for the write, and on resume every
+rank reads the checkpoint and starts from its own row.
 
 ``REPRO_CHECKPOINT_EXIT_AFTER_SAVE=<k>`` (env) hard-exits the process via
 ``os._exit(0)`` right after a save at step >= k: the crash-injection hook
@@ -144,6 +150,9 @@ def run_checkpointed(runner, *, checkpoint_dir: str | Path,
     meta = dict(metadata or {})
     meta.setdefault("executor", runner.executor)
     meta.setdefault("iters", total)
+    # a sharded run: rank 0 writes the gathered state, every rank waits
+    mesh = getattr(runner, "mesh", None)
+    writer = mesh is None or mesh.rank == 0
 
     state, parts = None, []
     if resume and latest_step(checkpoint_dir) is not None:
@@ -184,9 +193,12 @@ def run_checkpointed(runner, *, checkpoint_dir: str | Path,
                     "dnf_at_iter": verdict["at_iter"],
                 }
         with obs_trace.span("snapshot", step=done):
-            save_run_checkpoint(
-                checkpoint_dir, state, _concat_diags(parts), metadata=meta
-            )
+            if writer:
+                save_run_checkpoint(
+                    checkpoint_dir, state, _concat_diags(parts), metadata=meta
+                )
+            if mesh is not None:
+                mesh.barrier()
         if exit_after is not None and done >= int(exit_after):
             os._exit(0)   # crash injection: die AT a checkpoint boundary
         if verdict is not None and not verdict["healthy"]:
@@ -214,16 +226,19 @@ def remap_membership(state: Any, old_g: Any, new_g: Any) -> Any:
     * ``k`` is untouched.
 
     ``remap_membership(state, g, g)`` returns the state unchanged.  Only
-    the dense per-edge dual layout (``lam.shape[0] == old_g.n_edges``) is
-    remappable.  The result's leaves are on the state's device.
+    the dense per-edge dual layout (``lam`` (E, L, r)) is remappable; the
+    sharded executors' per-slot layouts are refused.  The result's leaves
+    are on the state's device.
     """
     fields = state._asdict()
     lam = fields["lam"]
-    if lam.shape[0] != old_g.n_edges:
+    if lam.ndim != 3 or lam.shape[0] != old_g.n_edges:
         raise ValueError(
             f"remap_membership needs the dense per-edge dual layout "
             f"(lam leading axis E={old_g.n_edges}); got lam.shape="
-            f"{tuple(lam.shape)}."
+            f"{tuple(lam.shape)}. The sharded executors' per-slot dual "
+            f"layouts are not remappable here — restore onto the original "
+            f"mesh and export through a dense-layout executor first."
         )
     m_old, m_new = int(old_g.m), int(new_g.m)
     n_keep = min(m_old, m_new)

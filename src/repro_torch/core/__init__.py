@@ -2,7 +2,9 @@
 consensus graphs, the neighbor exchange, the dense and colored consensus
 executors with their segmented ``Runner`` (the checkpointed runs of
 ``repro_torch.checkpoint``), the event-tape async executor of
-``repro_torch.netsim`` (``fit_async``), and the MTL-ELM / DMTL-ELM /
+``repro_torch.netsim`` (``fit_async``), the one-agent-per-rank sharded
+executors over a ``torch.distributed`` mesh (``fit_sharded``,
+``fit_sharded_graph``, ``core.mesh``), and the MTL-ELM / DMTL-ELM /
 FO-DMTL-ELM entry points."""
 
 from repro_torch.core.dmtl_elm import (
@@ -27,6 +29,9 @@ from repro_torch.core.engine import (
     fit_async,
     fit_colored,
     fit_dense,
+    fit_sharded,
+    fit_sharded_graph,
+    graph_matches_torus,
     jacobian_schedule,
     make_runner,
     produce_stats,
@@ -35,8 +40,10 @@ from repro_torch.core.engine import (
 )
 from repro_torch.core.fo_dmtl_elm import fo_dmtl_elm_fit
 from repro_torch.core.graph import (
+    EdgeSchedule,
     Graph,
     chain,
+    compile_edge_schedule,
     complete,
     erdos,
     expander,
@@ -45,20 +52,27 @@ from repro_torch.core.graph import (
     ring,
     star,
 )
+from repro_torch.core.mesh import Mesh, make_mesh, spawn
 from repro_torch.core.mtl_elm import (
     MTLELMConfig,
     mtl_elm_fit,
     mtl_elm_fit_from_stats,
     mtl_elm_predict,
 )
+from repro_torch.core.sharded_dmtl import (
+    dmtl_elm_fit_sharded,
+    dmtl_fit_from_stats,
+)
 
 __all__ = [
     "ConsensusConfig", "DMTLELMConfig", "DMTLELMState", "ELMFeatureMap",
-    "Graph", "MTLELMConfig", "RunState", "Runner", "SufficientStats",
-    "chain", "complete",
-    "dmtl_elm_fit", "dmtl_elm_predict", "elm_fit", "elm_objective",
+    "EdgeSchedule", "Graph", "MTLELMConfig", "Mesh", "RunState", "Runner",
+    "SufficientStats", "chain", "compile_edge_schedule", "complete",
+    "dmtl_elm_fit", "dmtl_elm_fit_sharded", "dmtl_elm_predict",
+    "dmtl_fit_from_stats", "elm_fit", "elm_objective",
     "elm_predict", "erdos", "expander", "fit", "fit_async", "fit_colored",
-    "fit_dense",
+    "fit_dense", "fit_sharded", "fit_sharded_graph", "graph_matches_torus",
+    "make_mesh", "spawn",
     "fo_dmtl_elm_fit", "hypercube", "jacobian_schedule", "make_feature_map",
     "make_runner", "mtl_elm_fit",
     "mtl_elm_fit_from_stats", "mtl_elm_predict", "paper_fig2a",

@@ -9,8 +9,9 @@ Jacobian (across agents) / Gauss-Seidel (U then A within an agent) proximal
 multi-block ADMM.  The data are reduced to
 :class:`~repro_torch.core.engine.SufficientStats` once, then
 ``engine.fit_dense`` (or the colored Gauss-Seidel sweep
-``engine.fit_colored``, or the event-tape async executor
-``engine.fit_async``) runs the iterations.
+``engine.fit_colored``, the event-tape async executor ``engine.fit_async``,
+or the one-agent-per-rank ``engine.fit_sharded`` / ``fit_sharded_graph``)
+runs the iterations.
 
 Solver choice (cfg.u_solver — ``engine.U_SOLVERS``): "kron" (the paper's
 eq. 19), "sylvester" (exact, eigh(G_t) hoisted), "cg", "pcg" (Jacobi-
@@ -22,11 +23,12 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import math
 
 import torch
 
 from repro_torch.checkpoint import run_checkpointed
-from repro_torch.core import engine
+from repro_torch.core import engine, sharded_dmtl
 from repro_torch.core.engine import ConsensusConfig, DenseState
 from repro_torch.core.graph import Graph
 from repro_torch.obs import report as obs_report
@@ -74,12 +76,6 @@ def dmtl_elm_fit(H, T, g: Graph, cfg: DMTLELMConfig, feature_map=None,
     return fit(H, T, g, cfg, feature_map=feature_map, use_kernel=use_kernel)
 
 
-def _not_ported(what: str, where: str):
-    return NotImplementedError(
-        f"{what} is not ported yet: it comes with {where}"
-    )
-
-
 def fit(
     H: torch.Tensor,
     T: torch.Tensor,
@@ -93,6 +89,8 @@ def fit(
     tape=None,
     channel=None,
     aged_duals: bool = False,
+    mesh=None,
+    agent_axes=None,
     feature_map=None,
     use_kernel: bool = True,
     checkpoint_dir=None,
@@ -107,14 +105,21 @@ def fit(
     ``executor="dense"`` is the synchronous Jacobian sweep;
     ``executor="colored"`` the Gauss-Seidel colored sweep
     (``engine.fit_colored``, with ``schedule=``, ``staleness=`` and
-    ``order=``, which apply to it alone); ``executor="async"`` the
-    event-driven asynchrony of ``repro_torch.netsim`` (``engine.fit_async``):
-    pass either a precomputed ``tape=`` (an ``EventTape`` or
-    ``AdversaryTape``) or a ``channel=`` (a ``ChannelModel``, sampled here
-    over ``cfg.iters`` ticks of ``g``); ``aged_duals=True`` also ships the
-    received duals through the lossy channel.  These three apply to
-    "async" alone.  "sharded" comes with the sharded executors (port slice
-    3, ROADMAP queue 1 item 5).  ``cfg.aggregator`` picks the neighbor
+    ``order=``; ``staleness``/``order`` apply to it alone);
+    ``executor="async"`` the event-driven asynchrony of
+    ``repro_torch.netsim`` (``engine.fit_async``): pass either a precomputed
+    ``tape=`` (an ``EventTape`` or ``AdversaryTape``) or a ``channel=`` (a
+    ``ChannelModel``, sampled here over ``cfg.iters`` ticks of ``g``);
+    ``aged_duals=True`` also ships the received duals through the lossy
+    channel.  ``executor="sharded"`` runs one agent per rank of
+    ``mesh=`` (a :class:`repro_torch.core.mesh.Mesh`) over ``agent_axes=``:
+    every rank calls ``fit`` and reduces only its own agent's rows of H
+    and T (the global stack, or its own (1, N, ...) block).  ``g`` that is
+    the mesh ring/torus (up to edge orientation) takes the torus fast path
+    (``engine.fit_sharded``); any other graph, a ``schedule=`` (Gauss-Seidel
+    phases in the mesh) or a ``tape=``/``channel=`` (in-mesh replay,
+    ``aged_duals`` too) takes the compiled schedule
+    (``engine.fit_sharded_graph``).  ``cfg.aggregator`` picks the neighbor
     reduction of every executor (``engine.AGGREGATORS``).
     ``cfg.stats_precision`` picks the Gram pass's precision ("fp32" |
     "bf16" | "int8").  The stats pass honors ``cfg.stats_producer``: with
@@ -143,18 +148,17 @@ def fit(
 
     Returns ``(DMTLELMState, diagnostics)`` with per-iteration
     'objective', 'lagrangian', 'consensus', 'gamma', 'gamma_min' and
-    'primal_sq'."""
+    'primal_sq'; ``executor="sharded"`` returns ``(U (m, L, r),
+    A (m, r, d), diagnostics)``, the same on every rank, and rank 0 alone
+    writes checkpoints, traces and reports."""
     # All validation happens BEFORE the Gram reduction.
     if executor not in EXECUTORS:
         raise ValueError(
             f"unknown executor {executor!r}; expected one of {EXECUTORS}"
         )
-    if executor == "sharded":
-        raise _not_ported("executor='sharded'",
-                          "port slice 3, ROADMAP queue 1 item 5")
-    if executor != "colored" and schedule is not None:
+    if executor not in ("colored", "sharded") and schedule is not None:
         raise ValueError(
-            "schedule= only applies to executor='colored', "
+            "schedule= only applies to executor='colored' or 'sharded', "
             f"got executor={executor!r}"
         )
     if executor != "colored" and staleness != 0:
@@ -187,12 +191,17 @@ def fit(
             f"unknown cfg.aggregator {cfg.aggregator!r}; registered: "
             f"{sorted(engine.AGGREGATORS)}"
         )
-    if executor != "async" and (
+    if executor != "sharded" and (mesh is not None or agent_axes is not None):
+        raise ValueError(
+            f"mesh=/agent_axes= only apply to executor='sharded', "
+            f"got executor={executor!r}"
+        )
+    if executor not in ("async", "sharded") and (
         tape is not None or channel is not None or aged_duals
     ):
         raise ValueError(
-            f"tape=/channel=/aged_duals= only apply to executor='async', "
-            f"got executor={executor!r}"
+            f"tape=/channel=/aged_duals= only apply to executor='async' or "
+            f"'sharded', got executor={executor!r}"
         )
     if executor == "async":
         if (tape is None) == (channel is None):
@@ -216,6 +225,27 @@ def fit(
             "health= monitoring runs at checkpoint segment boundaries; "
             "pass checkpoint_dir= (and checkpoint_every=) to arm it"
         )
+    if executor == "sharded":
+        if mesh is None or agent_axes is None:
+            raise ValueError(
+                "executor='sharded' needs mesh= and agent_axes="
+            )
+        n_agents = math.prod(mesh.shape[a] for a in agent_axes)
+        if g.m != n_agents:
+            raise ValueError(
+                f"graph has m={g.m} agents but prod(agent axes)={n_agents}"
+            )
+        # the dispatcher validates tape=/channel=/aged_duals= before each
+        # rank reduces only its own agent's rows
+        return sharded_dmtl._dispatch_sharded(
+            None, mesh, agent_axes, cfg, g, schedule=schedule, tape=tape,
+            channel=channel, aged_duals=aged_duals,
+            checkpoint_dir=checkpoint_dir, checkpoint_every=checkpoint_every,
+            resume=resume, telemetry=telemetry, trace_dir=trace_dir,
+            health=health, stats_fn=lambda: engine.produce_stats(
+                engine.own_rows(H, mesh), engine.own_rows(T, mesh),
+                producer=cfg.stats_producer, feature_map=feature_map,
+                precision=cfg.stats_precision, use_kernel=use_kernel))
     if telemetry:
         cfg = dataclasses.replace(cfg, telemetry=True)
     tracer = None

@@ -32,8 +32,13 @@ to per-agent updates over the sufficient statistics
 ``fit_async``
     The event-tape executor of ``repro_torch.netsim``: per-edge delays,
     drops, stragglers, Byzantine senders and membership churn replayed from
-    a precomputed tape around the same body.  The sharded executors come
-    with port slice 3 (ROADMAP queue 1 item 5).
+    a precomputed tape around the same body.
+``fit_sharded`` / ``fit_sharded_graph``
+    One agent per rank of a ``torch.distributed`` process group
+    (:mod:`repro_torch.core.mesh`): the ring/torus of the mesh's agent axes
+    (``ring_iteration``), or any connected graph compiled to ppermute
+    rounds (``exchange.ShardedGraphExchange``), with Gauss-Seidel phases
+    and in-mesh tape replay.  Only U_t and edge duals cross ranks.
 ``AGGREGATORS``
     ``cfg.aggregator``: the plain neighbor sum ("mean") or a robust center
     ("trimmed_mean", "coordinate_median", "krum_like", or one added with
@@ -67,8 +72,10 @@ the iterations are a Python loop over eager PyTorch ops.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Callable, NamedTuple, Sequence
 
+import numpy as np
 import torch
 
 from repro_torch.core import exchange
@@ -665,6 +672,8 @@ class RunState(NamedTuple):
                 ``j % depth`` holds the U published at the end of tick j
                 (U^0 before); lam_hist (depth, E, L, r), the duals' ring,
                 iff aged_duals; ``k`` is the tape cursor
+      sharded   agents leading on every leaf, the gathered state of all
+                ranks (the layouts are listed at the sharded executors)
     """
 
     U: torch.Tensor     # (m, L, r) stacked subspaces
@@ -685,6 +694,9 @@ class Runner:
     cfg: ConsensusConfig
     init_fn: Callable[[], RunState]
     segment_fn: Callable[[RunState, int], tuple[RunState, dict]]
+    # the sharded executors' mesh: every rank holds the gathered state, and
+    # rank 0 alone writes checkpoints (repro_torch.checkpoint)
+    mesh: object = None
 
     def init_state(self) -> RunState:
         """The k=0 state (all-ones U/A, zero duals)."""
@@ -754,37 +766,71 @@ def _diag_rows(rows: list, like: torch.Tensor, cfg: ConsensusConfig,
 
 
 def make_runner(
-    stats: SufficientStats, g: Graph, cfg: ConsensusConfig, *,
+    stats: SufficientStats, g: Graph | None = None,
+    cfg: ConsensusConfig | None = None, *,
     executor: str = "dense",
+    mesh=None, agent_axes: Sequence[str] | None = None,
     schedule: Sequence[Sequence[int]] | None = None,
     staleness: int = 0, order: str = "fixed",
     tape=None, aged_duals: bool = False,
 ) -> Runner:
-    """The segmented :class:`Runner` of a single-device executor:
-    ``executor="dense"`` (behind :func:`fit_dense`), ``"colored"`` (behind
-    :func:`fit_colored`, with ``schedule``/``staleness``/``order``) or
-    ``"async"`` (behind :func:`fit_async`, with ``tape`` and
-    ``aged_duals``).  ``runner.run()`` reproduces the ``fit_*`` call;
-    ``runner.run(state)`` starts from a given :class:`RunState`."""
-    if executor in ("sharded", "sharded_graph"):
-        raise NotImplementedError(
-            f"executor={executor!r} is not ported yet: it comes with the "
-            f"sharded executors (port slice 3), ROADMAP queue 1 item 5"
-        )
-    if executor not in ("dense", "colored", "async"):
+    """The segmented :class:`Runner` of any executor:
+
+      executor="dense"          (stats, g, cfg), behind :func:`fit_dense`
+      executor="colored"        + schedule/staleness/order (:func:`fit_colored`)
+      executor="async"          + tape (aged_duals optional) (:func:`fit_async`)
+      executor="sharded"        (stats, cfg) + mesh/agent_axes
+                                (:func:`fit_sharded`)
+      executor="sharded_graph"  + g, and a vertex schedule or a tape
+                                (:func:`fit_sharded_graph`)
+
+    ``tape=`` on ``executor="sharded"`` goes to the graph executor (the
+    ring/torus fast path replays no tape) and so needs ``g``, the graph
+    whose edge order the tape was sampled on.  ``runner.run()`` reproduces
+    the ``fit_*`` call; ``runner.run(state)`` starts from a given
+    :class:`RunState`."""
+    if cfg is None:
+        raise ValueError("make_runner requires a ConsensusConfig")
+    executors = ("dense", "colored", "async", "sharded", "sharded_graph")
+    if executor not in executors:
         raise ValueError(
             f"unknown executor {executor!r}; expected one of 'dense', "
             f"'colored', 'async', 'sharded', 'sharded_graph'"
         )
-    if executor != "async" and (tape is not None or aged_duals):
-        raise ValueError("tape=/aged_duals= only apply to executor='async'")
+    sharded = executor in ("sharded", "sharded_graph")
+    if not sharded and (mesh is not None or agent_axes is not None):
+        raise ValueError("mesh=/agent_axes= only apply to executor='sharded' "
+                         "or 'sharded_graph'")
+    if executor not in ("async", "sharded", "sharded_graph") and (
+            tape is not None or aged_duals):
+        raise ValueError("tape=/aged_duals= only apply to executor='async' "
+                         "or the sharded executors")
+    if executor not in ("colored", "sharded", "sharded_graph") and (
+            schedule is not None):
+        raise ValueError("schedule= only applies to executor='colored' or "
+                         "the sharded executors")
+    if executor != "colored" and (staleness != 0 or order != "fixed"):
+        raise ValueError(
+            "staleness=/order= only apply to executor='colored'"
+        )
+    if sharded:
+        if mesh is None or agent_axes is None:
+            raise ValueError(f"executor={executor!r} needs mesh= and "
+                             f"agent_axes=")
+        if executor == "sharded" and tape is None and not aged_duals \
+                and schedule is None:
+            return _make_sharded_runner(stats, mesh, agent_axes, cfg)
+        if g is None:
+            raise ValueError(
+                "the graph-compiled sharded executor needs g=: the Graph "
+                "to compile (and, with tape=, whose edge order the tape was "
+                "sampled on)")
+        return _make_sharded_graph_runner(
+            stats, mesh, agent_axes, g, cfg, schedule=schedule, tape=tape,
+            aged_duals=aged_duals)
     if executor == "colored":
         return _colored_runner(stats, g, cfg, schedule=schedule,
                                staleness=staleness, order=order)
-    if schedule is not None or staleness != 0 or order != "fixed":
-        raise ValueError(
-            "schedule=/staleness=/order= only apply to executor='colored'"
-        )
     if executor == "async":
         # imported here, as the reference does: netsim imports the engine
         from repro_torch.netsim.executor import make_async_runner
@@ -1047,3 +1093,676 @@ def _colored_runner(
                 _diag_rows(rows, U, cfg, comm, g.n_edges, fresh))
 
     return Runner("colored", cfg, init_fn, segment_fn)
+
+
+# --------------------------------------------------------------------------
+# The sharded executors: one agent per rank (repro_torch.core.mesh)
+# --------------------------------------------------------------------------
+#
+# Every rank runs the same program, as every shard runs the reference's
+# shard_map body: it reduces only its own agent's statistics, trades U and
+# the edge duals with its neighbors by ppermute, and runs the shared
+# agent_update on a batch of one agent.  Between segments every rank holds
+# the whole state in the reference's layout, gathered in agent order (so a
+# checkpoint is the reference's), and a segment starts from its own row:
+#
+#   sharded         lam (m, n_axes, L, r): the dual of agent t's edge to
+#                   its +1 neighbor along each axis
+#   sharded_graph   lam (m, n_slots, L, r): the duals of the edges agent t
+#                   is the source of (EdgeSchedule slots); with a tape, hist
+#                   (m, depth, L, r), each agent's OWN published U (slot
+#                   k % depth the U of the end of tick k), and with
+#                   aged_duals lam_hist (m, depth, n_slots, L, r)
+#
+# The per-agent diagnostics columns are gathered at a segment's end and
+# summed over agents in agent order on every rank, so every rank returns
+# the same diagnostics.
+
+
+def torus_edges(sizes: Sequence[int]) -> set:
+    """Directed edge set of the ring/torus :func:`fit_sharded` realizes:
+    agents are the row-major flattening of the agent-axis grid, and along
+    each axis every coordinate owns the edge to its +1 neighbor (a size-2
+    axis is the degenerate ring with a SINGLE edge)."""
+    import itertools
+
+    sizes = list(sizes)
+    strides = [1] * len(sizes)
+    for i in range(len(sizes) - 2, -1, -1):
+        strides[i] = strides[i + 1] * sizes[i + 1]
+
+    def flat(coord):
+        return sum(c * s for c, s in zip(coord, strides))
+
+    edges = set()
+    for ax_i, n_ax in enumerate(sizes):
+        for coord in itertools.product(*(range(s) for s in sizes)):
+            if n_ax == 2 and coord[ax_i] == 1:
+                continue
+            nb = list(coord)
+            nb[ax_i] = (coord[ax_i] + 1) % n_ax
+            edges.add((flat(coord), flat(nb)))
+    return edges
+
+
+def graph_matches_torus(g: Graph, sizes: Sequence[int]) -> bool:
+    """True iff ``g`` is the mesh ring/torus up to per-edge orientation
+    (flipping an edge flips its dual's sign and nothing else).  Compares
+    undirected edge sets; a duplicated edge fails the match."""
+    und = {frozenset(e) for e in g.edges}
+    if len(und) != len(g.edges):
+        return False
+    return und == {frozenset(e) for e in torus_edges(sizes)}
+
+
+def _local_objective(stats_t: SufficientStats, U, A, cfg: ConsensusConfig,
+                     m_total: int) -> torch.Tensor:
+    """ONE agent's share of the primal objective (eq. 12) from its own
+    stats (a batch of one agent, ``n``/``t2`` included); summed over agents
+    it is :func:`objective_from_stats`."""
+    UtGU = U.mT @ (stats_t.G @ U)
+    quad = torch.sum((UtGU @ A) * A)                 # tr(A^T U^T G U A)
+    cross = torch.sum((U.mT @ stats_t.R) * A)        # tr(A^T U^T R)
+    t2 = torch.sum(torch.as_tensor(stats_t.t2, dtype=torch.float32,
+                                   device=U.device))
+    return (0.5 * (quad - 2.0 * cross + t2)
+            + 0.5 * (cfg.mu1 / m_total) * torch.sum(U**2)
+            + 0.5 * cfg.mu2 * torch.sum(A**2))
+
+
+def _agent_sum(cols: torch.Tensor) -> torch.Tensor:
+    """(iters, m) -> (iters,), added agent by agent in agent order."""
+    out = cols[:, 0]
+    for t in range(1, cols.shape[1]):
+        out = out + cols[:, t]
+    return out
+
+
+def _assemble_sharded_diags(diags: dict, n_edges: int, lr_size: int) -> dict:
+    """The per-agent (iters, m) diagnostics columns -> the shared executor
+    diagnostics.  Each agent reports only the edges it owns, so the sums
+    over agents count every edge once."""
+    obj = _agent_sum(diags["obj"])
+    primal = _agent_sum(diags["primal_sq"])
+    out = {
+        "objective": obj,
+        "lagrangian": obj + _agent_sum(diags["lag_pen"]),
+        "consensus": torch.sqrt(primal / (n_edges * lr_size)),
+        "gamma": _agent_sum(diags["gamma_sum"]) / n_edges,
+        "gamma_min": torch.amin(diags["gamma_min"], dim=1),
+        "primal_sq": primal,
+    }
+    # telemetry: counts sum over agents, the worst residual is their max
+    if "resid_max" in diags:
+        out["resid_max"] = torch.amax(diags["resid_max"], dim=1)
+    for key in ("agg_rejected", "msgs_delivered", "msgs_stale",
+                "msgs_dropped"):
+        if key in diags:
+            out[key] = _agent_sum(diags[key])
+    return out
+
+
+_SHARD_KEYS = ("obj", "lag_pen", "primal_sq", "gamma_sum", "gamma_min")
+_SHARD_TELEMETRY_KEYS = ("resid_max", "agg_rejected", "msgs_delivered",
+                         "msgs_stale", "msgs_dropped")
+
+
+def _gather_columns(mesh, rows: list, cfg: ConsensusConfig,
+                    like: torch.Tensor) -> dict:
+    """This rank's per-iteration 0-d diagnostics -> every agent's (iters, m)
+    columns, on every rank."""
+    keys = _SHARD_KEYS + (_SHARD_TELEMETRY_KEYS if cfg.telemetry else ())
+    local = (torch.stack([torch.stack([r[k] for k in keys]) for r in rows])
+             if rows else like.new_zeros((0, len(keys))))
+    every = mesh.all_gather(local)                  # (m, iters, keys)
+    return {k: every[:, :, i].mT for i, k in enumerate(keys)}
+
+
+class ShardState(NamedTuple):
+    """One agent's state inside a sharded segment."""
+
+    U: torch.Tensor     # (L, r)
+    A: torch.Tensor     # (r, d)
+    lam: torch.Tensor   # (n_axes | n_slots, L, r) the duals it owns
+
+
+def own_rows(x: torch.Tensor, mesh) -> torch.Tensor:
+    """This rank's agent's rows of a per-agent input: row ``rank`` of the
+    global stack (m, ...), or the rank's own (1, ...) block as it is."""
+    m, rows = mesh.size, x.shape[0]
+    if rows == m:
+        return x[mesh.rank:mesh.rank + 1]
+    if rows == 1:
+        return x
+    raise ValueError(f"m={rows} must equal prod(agent axes)={m} (or 1: "
+                     f"this rank's own block)")
+
+
+def _shard_stats(stats: SufficientStats, mesh) -> SufficientStats:
+    """This rank's agent's statistics as a batch of one agent, on the
+    mesh's device.  ``stats`` is the global stack
+    (m, ...), of which the rank takes its row, or the rank's own (1, ...)
+    block; scalar ``n``/``t2`` apply to every agent."""
+    m, t = mesh.size, mesh.rank
+    rows = stats.G.shape[0]
+    device = mesh.device
+
+    def own(x):
+        return own_rows(x, mesh).to(device).contiguous()
+
+    def leaf(x):
+        x = torch.as_tensor(x, dtype=torch.float32, device=device)
+        if x.ndim == 0:
+            return x.reshape(1)
+        return x[t:t + 1] if x.shape[0] == m and rows == m else x.reshape(1)
+
+    return SufficientStats(G=own(stats.G), R=own(stats.R), n=leaf(stats.n),
+                           t2=leaf(stats.t2))
+
+
+def _shard_tau_zeta(cfg: ConsensusConfig, deg: torch.Tensor, t: int):
+    """This agent's (tau_t, zeta_t), (1,) each, resolved as
+    :func:`_resolve_tau_zeta` resolves every agent's."""
+    tau = torch.as_tensor(cfg.tau, dtype=deg.dtype, device=deg.device)
+    tau_t = tau + deg if tau.ndim == 0 else tau.reshape(-1)[t:t + 1]
+    zeta_t = torch.as_tensor(cfg.zeta, dtype=deg.dtype,
+                             device=deg.device).expand(1)
+    return tau_t, zeta_t
+
+
+def _update_one(stats_t, U, A, neigh, ct_lam, deg, tau, zeta, cfg, m_total,
+                precomp):
+    """:func:`agent_update` on this rank's agent (a batch of one): the new
+    (U, A), contiguous, the layout a restored checkpoint has."""
+    msgs = NeighborMsgs(neigh[None], ct_lam[None], deg, tau, zeta)
+    U_new, A_new = agent_update(stats_t, AgentState(U[None], A[None]), msgs,
+                                cfg, m_total=m_total, precomp=precomp)
+    return U_new[0].contiguous(), A_new[0].contiguous()
+
+
+def _ring_sizes(mesh, axes) -> list[int]:
+    """The agent axes' sizes; a ring needs two agents or more."""
+    sizes = [mesh.shape[ax] for ax in axes]
+    for ax, n_ax in zip(axes, sizes):
+        if n_ax < 2:
+            raise ValueError(f"agent axis {ax!r} needs >= 2 shards, got "
+                             f"{n_ax}")
+    return sizes
+
+
+def ring_iteration(
+    state: ShardState,
+    stats: SufficientStats,
+    mesh,
+    agent_axes: Sequence[str],
+    cfg: ConsensusConfig,
+    m_total: int,
+    precomp=None,
+) -> tuple[ShardState, dict]:
+    """One ADMM round of this rank's agent on the mesh ring/torus.
+
+    Message plumbing around :func:`agent_update`: gather the neighbors'
+    subspaces and the incoming edge duals over each axis' ring, run the
+    shared body, ship the fresh U once more for the edge-dual step: 3
+    ppermutes of U and 1 of lambda per agent axis.  A size-2 axis is the
+    degenerate ring with one edge (0, 1): degree 1 along it, the one
+    neighbor counted once, and only agent 0 owns the dual.  ``stats`` is
+    this agent's batch of one; the diagnostics count owned edges only."""
+    U, A, lam = state
+    axes = tuple(agent_axes)
+    sizes = _ring_sizes(mesh, axes)
+    coords = mesh.coords(mesh.rank)
+    dtype, device = U.dtype, U.device
+    deg = torch.tensor(sum(1.0 if n_ax == 2 else 2.0 for n_ax in sizes),
+                       dtype=dtype, device=device)
+    tau_t, zeta_t = _shard_tau_zeta(cfg, deg.reshape(1), mesh.rank)
+
+    # --- gather neighbor subspaces and incoming edge duals --------------
+    robust_agg = resolve_aggregator(cfg)
+    neigh = torch.zeros_like(U)
+    ct_lam = torch.zeros_like(U)
+    views, u_next_old, own_edge = [], [], []
+    for i, n_ax in enumerate(sizes):
+        u_next = mesh.ppermute(U, mesh.axis_shift(i, -1))        # U_{t+1}
+        lam_prev = mesh.ppermute(lam[i], mesh.axis_shift(i, 1))  # (t-1, t)
+        if n_ax == 2:
+            # one edge: the one neighbor arrives on both permutes; count it
+            # once, and only agent 0 owns the edge's dual
+            neigh = neigh + u_next
+            views.append(u_next)
+            own = coords[i] == 0
+        else:
+            u_prev = mesh.ppermute(U, mesh.axis_shift(i, 1))     # U_{t-1}
+            neigh = neigh + u_next + u_prev
+            views.extend((u_next, u_prev))
+            own = True
+        # C_t^T lambda: +lam on the own (source) edge, -lam on the incoming
+        ct_lam = ct_lam + lam[i] - lam_prev
+        u_next_old.append(u_next)
+        own_edge.append(own)
+    if robust_agg is not None:
+        neigh = exchange.stack_ring_candidates(views, U, deg, robust_agg)
+    agg_rejected = torch.zeros((), dtype=dtype, device=device)
+    if cfg.telemetry and robust_agg is not None:
+        # neigh = deg * agg(V, Mv): neigh / deg is the center audited
+        V = torch.stack(views + [U])
+        Mv = torch.ones((V.shape[0],), dtype=dtype, device=device)
+        agg_rejected = torch.sum(exchange.aggregator_audit(V, Mv,
+                                                           neigh / deg))
+
+    # --- the shared per-agent body ---------------------------------------
+    U_new, A_new = _update_one(stats, U, A, neigh, ct_lam, deg.reshape(1),
+                               tau_t, zeta_t, cfg, m_total, precomp)
+
+    # --- dual step on the owned edge (t, t+1) of each axis ----------------
+    lam_new = []
+    zero = torch.zeros((), dtype=dtype, device=device)
+    primal_sq = gamma_sum = lag_pen = resid_max = zero
+    gamma_min = torch.full((), torch.inf, dtype=dtype, device=device)
+    for i in range(len(axes)):
+        u_next_new = mesh.ppermute(U_new, mesh.axis_shift(i, -1))
+        if not own_edge[i]:
+            lam_new.append(torch.zeros_like(lam[i]))
+            continue
+        resid_new = U_new - u_next_new                   # C_i U^{k+1}
+        resid_old = U - u_next_old[i]                    # C_i U^k
+        lam_ax, gamma, primal = dual_step(lam[i], resid_old, resid_new, cfg)
+        lam_new.append(lam_ax)
+        primal_sq = primal_sq + primal
+        gamma_sum = gamma_sum + gamma
+        gamma_min = torch.minimum(gamma_min, gamma)
+        lag_pen = lag_pen + (torch.sum(lam_ax * resid_new)
+                             + 0.5 * cfg.rho * torch.sum(resid_new**2))
+        if cfg.telemetry:
+            resid_max = torch.maximum(resid_max,
+                                      torch.max(torch.abs(resid_new)))
+    diag = {"primal_sq": primal_sq, "gamma_sum": gamma_sum,
+            "gamma_min": gamma_min, "lag_pen": lag_pen}
+    if cfg.telemetry:
+        # every ring view arrives fresh each iteration: deg deliveries per
+        # agent, nothing stale or dropped
+        diag.update(resid_max=resid_max, agg_rejected=agg_rejected,
+                    msgs_delivered=deg, msgs_stale=zero, msgs_dropped=zero)
+    return ShardState(U_new, A_new, torch.stack(lam_new)), diag
+
+
+def _gathered(mesh, **leaves) -> dict:
+    """Every rank's row of each leaf, stacked in agent order."""
+    return {k: (None if v is None else mesh.all_gather(v))
+            for k, v in leaves.items()}
+
+
+def _make_sharded_runner(stats: SufficientStats, mesh,
+                         agent_axes: Sequence[str],
+                         cfg: ConsensusConfig) -> Runner:
+    """Runner of :func:`fit_sharded`: the ring/torus of the agent axes."""
+    axes = mesh.check_agent_axes(agent_axes)
+    sizes = _ring_sizes(mesh, axes)
+    m, t = mesh.size, mesh.rank
+    st = _shard_stats(stats, mesh)
+    L, d, r = st.G.shape[-1], st.R.shape[-1], cfg.r
+    dtype, device = st.G.dtype, st.G.device
+    n_axes = len(axes)
+    n_edges = len(torus_edges(sizes))
+    precomp = hoist_precomp(st, cfg)      # eigh of this agent's G, once
+    comm = modeled_floats_per_iter("sharded", L=L, r=r, m=m, n_axes=n_axes)
+
+    def init_fn():
+        return RunState(
+            U=torch.ones((m, L, r), dtype=dtype, device=device),
+            A=torch.ones((m, r, d), dtype=dtype, device=device),
+            lam=torch.zeros((m, n_axes, L, r), dtype=dtype, device=device),
+            k=0)
+
+    def segment_fn(state, n):
+        cur = ShardState(state.U[t].to(device), state.A[t].to(device),
+                         state.lam[t].to(device))
+        rows = []
+        for _ in range(n):
+            cur, diag = ring_iteration(cur, st, mesh, axes, cfg, m, precomp)
+            diag["obj"] = _local_objective(st, cur.U[None], cur.A[None], cfg,
+                                           m)
+            rows.append(diag)
+        diags = _assemble_sharded_diags(_gather_columns(mesh, rows, cfg,
+                                                        cur.U),
+                                        n_edges, L * r)
+        if cfg.telemetry:
+            diags["comm_floats"] = torch.full((n,), float(comm), dtype=dtype,
+                                              device=device)
+        return RunState(k=state.k + n,
+                        **_gathered(mesh, U=cur.U, A=cur.A, lam=cur.lam)), \
+            diags
+
+    return Runner("sharded", cfg, init_fn, segment_fn, mesh=mesh)
+
+
+def fit_sharded(stats: SufficientStats, mesh, agent_axes: Sequence[str],
+                cfg: ConsensusConfig):
+    """Consensus ADMM with one agent per rank of ``mesh``: the graph is the
+    ring/torus of the agent axes (:func:`torus_edges`), and each rank runs
+    the same :func:`agent_update` as :func:`fit_dense` on its own agent.
+    ``stats`` is the global stack (m, ...) or the rank's own (1, ...) block;
+    only U_t and the edge duals cross ranks.  Every rank calls it and gets
+    (U (m, L, r), A (m, r, d), diagnostics), gathered in agent order, with
+    the shared diagnostics keys."""
+    state, diags = _make_sharded_runner(stats, mesh, agent_axes, cfg).run()
+    return state.U, state.A, diags
+
+
+def _make_sharded_graph_runner(
+    stats: SufficientStats, mesh, agent_axes: Sequence[str], g: Graph,
+    cfg: ConsensusConfig, *,
+    schedule: Sequence[Sequence[int]] | None = None,
+    tape=None, aged_duals: bool = False,
+) -> Runner:
+    """Runner of :func:`fit_sharded_graph`: consensus ADMM over ANY
+    connected graph, one agent per rank.
+
+    ``compile_edge_schedule`` splits ``g``'s edges into <= Δ+1 matchings;
+    each is one bidirectional ppermute round (idle ranks receive zeros).
+    The round sums give ``fit_dense``'s neighbor sums, C^T lambda and dual
+    steps: the dual of edge (s, e) lives on rank s (the schedule's slot
+    table), as the dense executor keeps it with the source.
+
+    ``schedule`` (a vertex-class partition, e.g. ``g.chromatic_schedule()``)
+    runs Gauss-Seidel phases: each phase re-exchanges the live U and
+    updates its class, so later classes see earlier classes' fresh
+    subspaces, as :func:`fit_colored` with ``staleness=0``.
+    ``schedule=None`` is the Jacobian sweep (``fit_dense``).  Per iteration:
+    ``rounds * (phases + 1)`` U-ppermutes and ``rounds`` dual-ppermutes.
+
+    ``tape=`` replays an ``EventTape``/``AdversaryTape`` in the mesh
+    (Jacobian sweep only): each rank keeps a ring buffer of its OWN
+    published U, ages and corrupts what it sends, and masks receptions by
+    edge liveness; joins warm-start, stragglers freeze, and the duals step
+    on the true residuals with dead edges masked (``aged_duals`` also ages
+    the shipped duals), as ``netsim.fit_async``.  ``RunState.k`` is the
+    absolute tick, so a resumed segment replays bit for bit."""
+    from repro_torch.core.graph import compile_edge_schedule
+
+    axes = mesh.check_agent_axes(agent_axes)
+    m, t = mesh.size, mesh.rank
+    st = _shard_stats(stats, mesh)
+    if g.m != m:
+        raise ValueError(f"graph has m={g.m} agents but prod(agent axes)={m}")
+    if schedule is not None:
+        schedule = tuple(tuple(int(a) for a in cls) for cls in schedule)
+        _validate_schedule(schedule, m)
+    else:
+        schedule = jacobian_schedule(m)
+    in_phase = [t in cls for cls in schedule]
+    sched = compile_edge_schedule(g)
+    n_rounds = sched.n_rounds
+    L, d, r = st.G.shape[-1], st.R.shape[-1], cfg.r
+    dtype, device = st.G.dtype, st.G.device
+    deg_t = torch.as_tensor(g.degrees(), dtype=dtype,
+                            device=device)[t:t + 1]            # (1,)
+    tau_t, zeta_t = _shard_tau_zeta(cfg, deg_t, t)
+    slots = [int(x) for x in sched.slot[t]]
+    own = [float(x) for x in sched.own[t]]
+    robust_agg = resolve_aggregator(cfg)
+    sgx = exchange.ShardedGraphExchange(g, sched, mesh, dtype, robust_agg,
+                                        device=device)
+    rmask = sgx.rmask
+    precomp = hoist_precomp(st, cfg)
+    comm = modeled_floats_per_iter("sharded_graph", L=L, r=r,
+                                   n_edges=g.n_edges)
+
+    if aged_duals and tape is None:
+        raise ValueError("aged_duals=True needs tape= (the replayed tape)")
+    is_adv = getattr(tape, "attack", None) is not None
+    if tape is not None:
+        from repro_torch.netsim.adversary import AdversaryTape
+        from repro_torch.netsim.events import EventTape, validate_tape
+
+        validate_tape(tape, g, cfg.iters)
+        if len(schedule) != 1:
+            raise ValueError(
+                "in-mesh tape replay supports only the Jacobian sweep "
+                "(schedule=None); Gauss-Seidel phases have no tape "
+                "semantics")
+        depth = tape.depth
+        tbl = sgx.tape_tables(tape)
+        # this agent's columns of the per-tick tables, kept on the host and
+        # uploaded a segment at a time
+        rows_np = {"age": tbl["send_age"][:, t], "live": tbl["live"][:, t],
+                   "active": np.asarray(tape.active, np.float32)[:, t]}
+        if is_adv:
+            rows_np.update(attack=np.asarray(tape.attack)[:, t],
+                           noise=np.asarray(tape.noise)[:, t],
+                           member=tbl["member"][:, t],
+                           member_prev=tbl["member_prev"][:, t])
+            offset = torch.as_tensor(np.asarray(tape.offset), dtype=dtype,
+                                     device=device)
+        scalar_tau = torch.as_tensor(cfg.tau).ndim == 0
+        tau0 = torch.as_tensor(cfg.tau, dtype=dtype, device=device)
+        init_u = torch.ones((L, r), dtype=dtype, device=device)
+
+    def new_diag(U, A, acc, tele):
+        diag = {"obj": _local_objective(st, U[None], A[None], cfg, m),
+                **{k: acc[k] for k in ("lag_pen", "primal_sq", "gamma_sum",
+                                       "gamma_min")}}
+        return {**diag, **tele}
+
+    def dual_steps(lam, U_old, U_new, nb_old, nb_new, live=None):
+        """The dual step on every owned round's edge; the diagnostics
+        count owned edges only.  ``live`` masks dead edges' residuals."""
+        lam = lam.clone()
+        zero = torch.zeros((), dtype=dtype, device=device)
+        acc = dict(primal_sq=zero, gamma_sum=zero, lag_pen=zero,
+                   gamma_min=torch.full((), torch.inf, dtype=dtype,
+                                        device=device),
+                   resid_max=zero)
+        for rr in range(n_rounds):
+            if own[rr] == 0.0:
+                continue
+            resid_new = U_new - nb_new[rr]            # C_i U^{k+1} on src
+            resid_old = U_old - nb_old[rr]            # C_i U^k on src
+            if live is not None:
+                resid_new = resid_new * live[rr]
+                resid_old = resid_old * live[rr]
+            lam_upd, gamma, primal = dual_step(lam[slots[rr]], resid_old,
+                                               resid_new, cfg)
+            lam[slots[rr]] = lam_upd
+            acc["primal_sq"] = acc["primal_sq"] + primal
+            acc["gamma_sum"] = acc["gamma_sum"] + gamma
+            acc["gamma_min"] = torch.minimum(acc["gamma_min"], gamma)
+            acc["lag_pen"] = acc["lag_pen"] + (
+                torch.sum(lam_upd * resid_new)
+                + 0.5 * cfg.rho * torch.sum(resid_new**2))
+            if cfg.telemetry:
+                acc["resid_max"] = torch.maximum(
+                    acc["resid_max"], torch.max(torch.abs(resid_new)))
+        return lam, acc
+
+    def step(U, A, lam):
+        U_start = U
+        # C_t^T lambda: + owned duals, - every incoming dual
+        ct_lam = sgx.ship_ct_lam(lam, slots, own)
+        u_start_nb = sgx.exchange(U_start)  # also resid_old for the duals
+        nb = u_start_nb
+        agg_rejected = torch.zeros((), dtype=dtype, device=device)
+        if cfg.telemetry and robust_agg is not None:
+            # reduce_views returns deg_t * agg(V, Mv): the center audited
+            neigh0 = sgx.reduce_views(u_start_nb, U_start, deg_t[0], rmask)
+            agg_rejected = sgx.audit_views(
+                u_start_nb, U_start, rmask,
+                neigh0 / torch.clamp(deg_t[0], min=1.0))
+        for p in range(len(schedule)):
+            if p > 0:
+                nb = sgx.exchange(U)            # live U: Gauss-Seidel phases
+            if not in_phase[p]:
+                continue
+            neigh = sgx.reduce_views(nb, U, deg_t[0], rmask)
+            U, A = _update_one(st, U, A, neigh, ct_lam, deg_t, tau_t, zeta_t,
+                               cfg, m, precomp)
+        u_new_nb = sgx.exchange(U)
+        lam, acc = dual_steps(lam, U_start, U, u_start_nb, u_new_nb)
+        tele = {}
+        if cfg.telemetry:
+            # every scheduled round delivers a fresh view: rmask counts them
+            zero = torch.zeros((), dtype=dtype, device=device)
+            tele = dict(resid_max=acc["resid_max"], agg_rejected=agg_rejected,
+                        msgs_delivered=torch.sum(rmask), msgs_stale=zero,
+                        msgs_dropped=zero)
+        return U, A, lam, new_diag(U, A, acc, tele)
+
+    def tape_step(U, A, lam, hist, lam_hist, k, row):
+        age_row, live_row, act_t = row["age"], row["live"], row["active"]
+        code = noise_t = None
+        if is_adv:
+            code, noise_t = row["attack"], row["noise"]
+        # aged, corrupted views from each sender's OWN ring buffer
+        recv = sgx.tape_exchange(hist, k, age_row, depth, code=code,
+                                 noise_t=noise_t,
+                                 offset=offset if is_adv else None,
+                                 init_u=init_u)
+        deg_eff = torch.sum(live_row)           # live degree (exact)
+        agg_rejected = torch.zeros((), dtype=dtype, device=device)
+        if robust_agg is None:
+            # round-order sum; `* live_row[rr]` passes a live view through
+            # bit for bit (x * 1.0)
+            neigh = functools.reduce(
+                torch.add, [recv[rr] * live_row[rr] for rr in range(n_rounds)])
+            center = neigh / torch.clamp(deg_eff, min=1.0)
+        else:
+            V = torch.stack(recv + [U])
+            Mv = torch.cat([live_row, sgx.ones1])
+            center = robust_agg(V, Mv)
+            neigh = deg_eff * center
+            if cfg.telemetry:
+                agg_rejected = torch.sum(exchange.aggregator_audit(V, Mv,
+                                                                   center))
+        tau_eff = (tau0 + deg_eff).reshape(1) if (is_adv and scalar_tau) \
+            else tau_t
+        aged = None
+        if aged_duals:
+            aged = {"lam_hist": lam_hist, "k": k, "age_row": age_row,
+                    "depth": depth, "code": code, "noise": noise_t,
+                    "offset": offset if is_adv else None}
+        ct_lam = sgx.tape_ct_lam(lam, slots, own, live_row, aged=aged)
+        if is_adv:
+            # a (re)joining agent warm-starts from the aggregate of its
+            # live neighbors (kept at U when it joins in isolation)
+            join = (row["member"] * (1.0 - row["member_prev"])) > 0
+            U_base = torch.where(join & (deg_eff > 0), center, U)
+        else:
+            U_base = U
+        U_upd, A_upd = _update_one(
+            st, U_base, A, neigh, ct_lam,
+            deg_eff.reshape(1) if is_adv else deg_t, tau_eff, zeta_t, cfg,
+            m, precomp)
+        on = act_t > 0
+        U_new = torch.where(on, U_upd, U_base).contiguous()  # stragglers
+        A_new = torch.where(on, A_upd, A).contiguous()
+        # synchronous duals on the TRUE residuals (fresh exchanges), dead
+        # edges masked to zero so their duals freeze exactly
+        nb_old = sgx.exchange(U_base)
+        nb_new = sgx.exchange(U_new)
+        lam, acc = dual_steps(lam, U_base, U_new, nb_old, nb_new,
+                              live=live_row)
+        hist[k % depth] = U_new
+        if aged_duals:
+            lam_hist[k % depth] = lam
+        tele = {}
+        if cfg.telemetry:
+            # live receptions split by age (1: a fresh view); scheduled
+            # rounds whose edge is dead this tick are drops
+            fresh = (age_row == 1).to(dtype)
+            tele = dict(resid_max=acc["resid_max"], agg_rejected=agg_rejected,
+                        msgs_delivered=torch.sum(live_row * fresh),
+                        msgs_stale=torch.sum(live_row * (1.0 - fresh)),
+                        msgs_dropped=torch.sum(rmask - live_row))
+        return U_new, A_new, lam, new_diag(U_new, A_new, acc, tele)
+
+    def init_fn():
+        hist0 = lam_hist0 = None
+        if tape is not None:
+            # U^0 in every slot: the "nothing delivered yet" / drop view
+            hist0 = torch.ones((m, depth, L, r), dtype=dtype, device=device)
+            if aged_duals:
+                lam_hist0 = torch.zeros((m, depth, sched.n_slots, L, r),
+                                        dtype=dtype, device=device)
+        return RunState(
+            U=torch.ones((m, L, r), dtype=dtype, device=device),
+            A=torch.ones((m, r, d), dtype=dtype, device=device),
+            lam=torch.zeros((m, sched.n_slots, L, r), dtype=dtype,
+                            device=device),
+            k=0, hist=hist0, lam_hist=lam_hist0)
+
+    def revalidate_suffix(k0, n):
+        """A resumed mid-tape segment re-checks the suffix it replays."""
+        sl = slice(k0, k0 + n)
+        if is_adv:
+            suffix = AdversaryTape(
+                age=np.asarray(tape.age)[sl], active=np.asarray(tape.active)[sl],
+                attack=np.asarray(tape.attack)[sl],
+                noise=np.asarray(tape.noise)[sl],
+                offset=np.asarray(tape.offset),
+                member=np.asarray(tape.member)[sl])
+        else:
+            suffix = EventTape(age=np.asarray(tape.age)[sl],
+                               active=np.asarray(tape.active)[sl])
+        validate_tape(suffix, g, start=k0)
+
+    def segment_fn(state, n):
+        k0 = int(state.k)
+        U, A, lam = (state.U[t].to(device), state.A[t].to(device),
+                     state.lam[t].to(device))
+        rows = []
+        hist = lam_hist = None
+        if tape is None:
+            for _ in range(n):
+                U, A, lam, diag = step(U, A, lam)
+                rows.append(diag)
+        else:
+            if k0 > 0 and n > 0:
+                revalidate_suffix(k0, n)
+            # the segment's tape rows, uploaded once
+            sl = slice(k0, k0 + n)
+            seg = {name: torch.as_tensor(
+                       arr[sl], device=device,
+                       dtype=(torch.int64 if name in ("age", "attack")
+                              else dtype))
+                   for name, arr in rows_np.items()}
+            # the ring buffers are written in place: this segment's copies
+            hist = state.hist[t].to(device).clone(
+                memory_format=torch.contiguous_format)
+            if aged_duals:
+                lam_hist = state.lam_hist[t].to(device).clone(
+                    memory_format=torch.contiguous_format)
+            for i in range(n):
+                U, A, lam, diag = tape_step(
+                    U, A, lam, hist, lam_hist, k0 + i,
+                    {name: x[i] for name, x in seg.items()})
+                rows.append(diag)
+        diags = _assemble_sharded_diags(_gather_columns(mesh, rows, cfg, U),
+                                        g.n_edges, L * r)
+        if tape is not None:
+            diags["tape_cursor"] = torch.arange(k0, k0 + n, dtype=torch.int32,
+                                                device=device)
+        if cfg.telemetry:
+            diags["comm_floats"] = torch.full((n,), float(comm), dtype=dtype,
+                                              device=device)
+        return RunState(k=k0 + n, **_gathered(mesh, U=U, A=A, lam=lam,
+                                              hist=hist,
+                                              lam_hist=lam_hist)), diags
+
+    return Runner("sharded_graph", cfg, init_fn, segment_fn, mesh=mesh)
+
+
+def fit_sharded_graph(
+    stats: SufficientStats, mesh, agent_axes: Sequence[str], g: Graph,
+    cfg: ConsensusConfig, *,
+    schedule: Sequence[Sequence[int]] | None = None,
+    tape=None, aged_duals: bool = False,
+):
+    """Consensus ADMM over ANY connected ``Graph``, one agent per rank (see
+    :func:`_make_sharded_graph_runner` for the schedule, the Gauss-Seidel
+    phases and the in-mesh tape replay).  Returns ``(U, A, diagnostics)``,
+    the :func:`fit_sharded` contract (plus ``tape_cursor`` with a tape)."""
+    runner = _make_sharded_graph_runner(stats, mesh, agent_axes, g, cfg,
+                                        schedule=schedule, tape=tape,
+                                        aged_duals=aged_duals)
+    state, diags = runner.run()
+    return state.U, state.A, diags

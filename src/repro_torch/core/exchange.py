@@ -10,9 +10,15 @@ candidate table plus the agent's own U (the robust path).
 executor (``repro_torch.netsim``): ring-buffer age selection per directed
 edge, sender-side adversary corruption (:func:`apply_attack`), membership
 degree masking, and the per-delivery candidate table of the robust path.
-They are the counterparts of the reference's
-``repro/core/exchange.py::DenseExchange`` and ``DenseTapeGather``; the
-sharded backend comes with the sharded executors (ROADMAP queue 1 item 5).
+``ShardedGraphExchange`` is the sharded executors' backend: one agent per
+rank of a :class:`repro_torch.core.mesh.Mesh`, one bidirectional
+:meth:`~repro_torch.core.mesh.Mesh.ppermute` per round of a compiled
+:class:`~repro_torch.core.graph.EdgeSchedule`, duals shipped source to
+destination, and in-mesh tape replay (each rank ages, corrupts and ships
+views of its OWN published U).  The ring/torus fast path
+(``engine.ring_iteration``) shares :func:`stack_ring_candidates` for its
+robust reduce.  They are the counterparts of the reference's
+``repro/core/exchange.py`` classes of the same names.
 
 Summation order: every segment sum adds its terms one gather at a time, in
 edge order, onto zeros: the order of a sequential segment sum (and of
@@ -28,6 +34,8 @@ executor bit for bit.
 from __future__ import annotations
 
 from typing import Callable, NamedTuple
+
+import functools
 
 import numpy as np
 import torch
@@ -94,6 +102,15 @@ def apply_attack(v, code_b, noise, replay, offset):
     out = torch.where(code_b == 2, v + noise, out)
     out = torch.where(code_b == 3, replay, out)
     return torch.where(code_b == 4, v + offset, out)
+
+
+def stack_ring_candidates(views, U, deg, agg):
+    """Robust reduce of the torus fast path: the per-axis ring views + own
+    U as candidates (every ring neighbor is live: an all-ones mask),
+    rescaled to the degree-weighted sum ``agent_update`` expects."""
+    V = torch.stack(list(views) + [U], dim=0)            # (K + 1, L, r)
+    Mv = torch.ones((V.shape[0],), dtype=V.dtype, device=V.device)
+    return deg * agg(V, Mv)
 
 
 def aggregator_audit(V, M, center):
@@ -332,3 +349,146 @@ class DenseTapeGather:
                               tau_eff=tau_eff, center=center, table=table,
                               mask=mask)
         return view0, view1, slot1, el, views
+
+
+class ShardedGraphExchange:
+    """Masked-ppermute rounds over a compiled edge schedule, one agent per
+    rank.
+
+    Built on every rank from the same host-side schedule; the methods run
+    on this rank's agent alone, on unbatched ``(L, r)`` blocks, and every
+    rank calls them in the same order (each ppermute is a collective of the
+    mesh).  The mean path sums the round views in round order
+    (``functools.reduce``, zeros on idle rounds); the robust path stacks
+    them with this rank's round-participation mask and own U, so idle
+    rounds' zeros are EXCLUDED, never candidates."""
+
+    def __init__(self, g, sched, mesh, dtype, agg: Callable | None = None,
+                 device="cuda"):
+        self.g = g
+        self.sched = sched
+        self.mesh = mesh
+        self.dtype = dtype
+        self.agg = agg
+        self.n_rounds = sched.n_rounds
+        # rmask[t, rr] = 1 iff round rr delivers a partner's U to agent t;
+        # a row sums to the agent's degree
+        rmask = np.zeros((g.m, self.n_rounds), np.float32)
+        for rr in range(self.n_rounds):
+            for _s, dd in sched.bidir_perms[rr]:
+                rmask[dd, rr] = 1.0
+        self.rmask_all = rmask
+        self.rmask = torch.as_tensor(rmask[mesh.rank], dtype=dtype,
+                                     device=device)
+        self.ones1 = torch.ones((1,), dtype=dtype, device=device)
+
+    def exchange(self, x: torch.Tensor) -> list:
+        """One bidirectional ppermute per round: round rr delivers the
+        round-rr partner's x (zeros when idle)."""
+        return [self.mesh.ppermute(x, self.sched.bidir_perms[rr])
+                for rr in range(self.n_rounds)]
+
+    def reduce_views(self, nb, U, deg_t, rmask):
+        """Round views -> the ``agent_update`` neighbor sum: the round-order
+        sum (mean), or ``deg_t`` times the robust center over the
+        round-live views + own U."""
+        if self.agg is None:
+            return functools.reduce(torch.add, nb)
+        V = torch.stack(list(nb) + [U], dim=0)           # (rounds + 1, L, r)
+        Mv = torch.cat([rmask, self.ones1])
+        return deg_t * self.agg(V, Mv)
+
+    def audit_views(self, nb, U, rmask, center):
+        """Telemetry (robust path): this rank's :func:`aggregator_audit`
+        rejections over the round views + own U, a 0-d tensor (``rmask``
+        the participation mask, or the tape's live row under replay)."""
+        V = torch.stack(list(nb) + [U], dim=0)
+        Mv = torch.cat([rmask, self.ones1])
+        return torch.sum(aggregator_audit(V, Mv, center))
+
+    def ship_ct_lam(self, lam, slots, own):
+        """C_t^T lambda: + the duals this rank owns (unowned slots stay
+        zero), - every incoming dual, shipped source -> destination per
+        round.  ``slots``/``own`` are this rank's schedule rows."""
+        ct_lam = torch.sum(lam, dim=0)
+        for rr in range(self.n_rounds):
+            lam_send = own[rr] * lam[slots[rr]]
+            ct_lam = ct_lam - self.mesh.ppermute(lam_send,
+                                                 self.sched.dir_perms[rr])
+        return ct_lam
+
+    # ---------------------------------------------------------------- tape
+
+    def tape_tables(self, tape) -> dict:
+        """Host-side per-(tick, agent, round) tables of in-mesh replay.
+
+        ``send_age[k, t, rr]`` is the age of the message agent ``t`` SENDS
+        on its round-``rr`` edge at tick ``k`` (its directed edge's tape
+        row): the sender reads slot ``(k - send_age) mod depth`` of its OWN
+        published history, so one ppermute still moves every message.
+        ``live[k, t, rr]`` masks the round for both endpoints when either
+        is a non-member at tick ``k`` (zero on idle rounds)."""
+        g, sched = self.g, self.sched
+        iters, m = tape.iters, g.m
+        age = np.asarray(tape.age)
+        member = getattr(tape, "member", None)
+        member = (np.ones((iters, m), np.float32) if member is None
+                  else np.asarray(member, np.float32))
+        send_age = np.ones((iters, m, self.n_rounds), np.int32)
+        live = np.zeros((iters, m, self.n_rounds), np.float32)
+        for rr, cls in enumerate(sched.rounds):
+            for i in cls:
+                s, e = g.edges[i]
+                # direction 1 is s -> e: s's outgoing age; 0 is e -> s
+                send_age[:, s, rr] = age[:, 1, i]
+                send_age[:, e, rr] = age[:, 0, i]
+                el = member[:, s] * member[:, e]
+                live[:, s, rr] = el
+                live[:, e, rr] = el
+        member_prev = (np.concatenate([member[:1], member[:-1]], axis=0)
+                       if iters else member)
+        return {"send_age": send_age, "live": live, "member": member,
+                "member_prev": member_prev}
+
+    def tape_exchange(self, hist, k, age_row, depth, code=None, noise_t=None,
+                      offset=None, init_u=None) -> list:
+        """Send-side aged (and corrupted) exchange: per round this rank
+        picks the view its age asks for from its OWN ring buffer ``hist``
+        (depth, L, r), corrupts it with its OWN attack code, and the
+        bidirectional ppermute delivers.  The caller masks receptions by
+        the ``live`` row."""
+        outs = []
+        for rr in range(self.n_rounds):
+            # a 1-element index tensor: a gather on the device, no host sync
+            slot = torch.remainder(k - age_row[rr:rr + 1], depth)
+            v = hist[slot][0]
+            if code is not None:
+                v = apply_attack(v, code, noise_t, init_u, offset)
+            outs.append(self.mesh.ppermute(v, self.sched.bidir_perms[rr]))
+        return outs
+
+    def tape_ct_lam(self, lam, slots, own, live_row, *, aged=None):
+        """C_t^T lambda under membership masking: + the owned duals with
+        dead owned edges removed (``own - gate`` is an exact zero on a live
+        edge, so a zero-adversary tape keeps the no-tape gather's values
+        bit for bit), - the received duals, sender-masked.  ``aged`` (a
+        dict with lam_hist/k/age_row/depth and optional code/noise/offset)
+        ships the age-selected, sender-corrupted ``lam_hist`` slot instead
+        (a replayed dual is the ZERO initial dual)."""
+        ct_lam = torch.sum(lam, dim=0)
+        for rr in range(self.n_rounds):
+            gate = own[rr] * live_row[rr]
+            ct_lam = ct_lam - (own[rr] - gate) * lam[slots[rr]]
+            if aged is None:
+                lam_send = gate * lam[slots[rr]]
+            else:
+                slot = torch.remainder(aged["k"] - aged["age_row"][rr:rr + 1],
+                                       aged["depth"])
+                lv = aged["lam_hist"][slot, slots[rr]][0]
+                if aged.get("code") is not None:
+                    lv = apply_attack(lv, aged["code"], aged["noise"],
+                                      torch.zeros_like(lv), aged["offset"])
+                lam_send = gate * lv
+            ct_lam = ct_lam - self.mesh.ppermute(lam_send,
+                                                 self.sched.dir_perms[rr])
+        return ct_lam

@@ -7,17 +7,19 @@ pooled features stream into the engine's sufficient statistics (on the card
 through the fused Gram kernel), and the head's per-task weights
 ``beta_t = U_t A_t`` are fitted over those statistics.
 
-``fit_head`` (the sharded ring fit over a mesh) comes with the multi-GPU
-slice; ``fit_head_local`` is the single-device Local-ELM baseline.
+``fit_head`` fits them with one agent per rank over a mesh
+(``engine.fit_sharded``, the ring/torus of its axes); ``fit_head_local``
+is the single-device Local-ELM baseline.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Optional, Sequence
 
 import torch
 
+from repro_torch.core import engine
 from repro_torch.core.engine import ConsensusConfig as DMTLELMConfig
 from repro_torch.core.engine import SufficientStats
 from repro_torch.models.config import ModelConfig
@@ -61,10 +63,14 @@ class MultiTaskELMHead:
         return torch.einsum("mbl,mlr,mrd->mbd", H, self.U, self.A)
 
 
-def fit_head(stats: SufficientStats, mesh, agent_axes, cfg: DMTLELMConfig):
-    raise NotImplementedError(
-        "fit_head runs the sharded ring executor (engine.fit_sharded), which "
-        "comes with slice 3 (multi-GPU); use engine.fit_dense on one device")
+def fit_head(stats: SufficientStats, mesh, agent_axes: Sequence[str],
+             cfg: DMTLELMConfig) -> tuple[MultiTaskELMHead, dict]:
+    """Decentralized fit over accumulated statistics (Algorithm 2/3) with
+    one agent per rank of ``mesh``: the shared ``engine.agent_update`` on
+    the ring/torus of ``agent_axes`` (``engine.fit_sharded``).  Every rank
+    calls it and gets every agent's head."""
+    U, A, diags = engine.fit_sharded(stats, mesh, agent_axes, cfg)
+    return MultiTaskELMHead(U=U, A=A), diags
 
 
 def fit_head_local(stats: SufficientStats, cfg: DMTLELMConfig) -> MultiTaskELMHead:

@@ -195,7 +195,7 @@ def test_make_runner_executor_dispatch():
     assert torch.isfinite(runner.run()[0].U).all()
     with pytest.raises(ValueError, match="only apply to executor='async'"):
         te.make_runner(st, g, cfg, tape=netsim.zero_delay_tape(2, g))
-    with pytest.raises(NotImplementedError, match="slice 3"):
+    with pytest.raises(ValueError, match="needs mesh= and agent_axes="):
         te.make_runner(st, g, cfg, executor="sharded")
     with pytest.raises(ValueError, match="unknown executor"):
         te.make_runner(st, g, cfg, executor="gossip")

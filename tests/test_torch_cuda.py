@@ -945,3 +945,37 @@ def test_async_robust_aggregators_and_counters_on_the_card(gen):
     per_tick = (syncs(runner, 8) - syncs(runner, 2)) / 6
     per_iteration = (syncs(dense, 8) - syncs(dense, 2)) / 6
     assert per_tick == per_iteration, (per_tick, per_iteration)
+
+
+def test_sharded_world_of_two_ranks_on_the_card(gen):
+    """``repro_torch.core.mesh.spawn`` puts two ranks on the card over gloo
+    (NCCL refuses two ranks on one device): each reduces its own rows with
+    one ``gram_tri`` launch, and ring(2) (torus path), a flipped ring(2)
+    and chain(2) (compiled path) agree with ``fit_dense`` on the card."""
+    import numpy as np
+
+    import torch_sharded_worlds as worlds
+    from repro_torch.core import engine, graph
+    from repro_torch.core.mesh import spawn
+
+    rng = np.random.default_rng(0)
+    inp = {"H": (rng.standard_normal((2, 512, 64)) / 8).astype(np.float32),
+           "T": rng.standard_normal((2, 512, 3)).astype(np.float32),
+           "cfg": engine.ConsensusConfig(r=1, iters=8, tau=2.0, zeta=1.0)}
+    res = spawn(worlds.cuda_pair, 2, device="cuda", timeout_s=300,
+                args=(inp,))
+    st = engine.sufficient_stats(torch.as_tensor(inp["H"], device="cuda"),
+                                 torch.as_tensor(inp["T"], device="cuda"))
+    state, diags = engine.fit_dense(st, graph.ring(2), inp["cfg"])
+    for r in res:
+        assert r["transport"] == "gloo via host"
+        assert r["device"].startswith("cuda")
+        assert r["launches"]["gram_tri"] == 1
+        for name in ("ring2", "flipped", "chain2"):
+            torch.testing.assert_close(r[name]["U"], state.U.cpu(),
+                                       rtol=1e-4, atol=1e-5)
+            torch.testing.assert_close(r[name]["A"], state.A.cpu(),
+                                       rtol=1e-4, atol=1e-5)
+            torch.testing.assert_close(r[name]["objective"],
+                                       diags["objective"].cpu(),
+                                       rtol=1e-4, atol=1e-5)

@@ -174,7 +174,7 @@ def test_fit_rejects_what_later_slices_bring():
             td.fit(H, T, g, cfg, executor="async", **kw)
     with pytest.raises(ValueError, match="only apply to executor='async'"):
         td.fit(H, T, g, cfg, tape=netsim.zero_delay_tape(1, g))
-    with pytest.raises(NotImplementedError, match="slice 3"):
+    with pytest.raises(ValueError, match="mesh"):
         td.fit(H, T, g, cfg, executor="sharded")
     with pytest.raises(ValueError, match="unknown executor"):
         td.fit(H, T, g, cfg, executor="gossip")

@@ -18,6 +18,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 import jax  # noqa: E402
+import torch_sharded_worlds as worlds  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
 from repro.core import elm as jelm  # noqa: E402
@@ -30,6 +31,7 @@ from repro.models.transformer import init_model as j_init  # noqa: E402
 from repro_torch import backbone, convert  # noqa: E402
 from repro_torch.core import engine as te  # noqa: E402
 from repro_torch.core import heads as th  # noqa: E402
+from repro_torch.core.mesh import spawn  # noqa: E402
 from repro_torch.data.pipeline import stream_sufficient_stats  # noqa: E402
 
 M, N_BATCHES, BATCH, SEQ, L = 4, 2, 8, 24, 256
@@ -157,8 +159,16 @@ def test_pooled_features_with_mask(both):
 
 
 def test_fit_head_is_the_multi_gpu_slice(both):
-    with pytest.raises(NotImplementedError, match="slice 3"):
-        th.fit_head(both["tstats"], None, ("x",), both["cfg_admm"])
+    """``fit_head`` runs one agent per rank (a gloo world of M ranks on the
+    CPU) and gives every rank the fit of ``engine.fit_dense`` on ring(M)."""
+    st = both["tstats"]
+    args = ({k: getattr(st, k).numpy() for k in ("G", "R", "n", "t2")},
+            both["cfg_admm"])
+    heads = spawn(worlds.fit_head_world, M, args=args, timeout_s=300)
+    for U, A, diags in heads:
+        for got, want in ((U, both["tstate"].U), (A, both["tstate"].A),
+                          (diags["objective"], both["tdiag"]["objective"])):
+            torch.testing.assert_close(got, want, rtol=1e-5, atol=2e-5)
 
 
 def test_task_batches_follow_the_example():

@@ -35,7 +35,8 @@ def test_scan_covers_the_package():
 
 
 @pytest.mark.parametrize("part", ["checkpoint", "obs", "baselines",
-                                  "configs/paper.py", "netsim"])
+                                  "configs/paper.py", "netsim",
+                                  "core/mesh.py", "core/sharded_dmtl.py"])
 def test_scan_covers_the_checkpointed_slice(part):
     target = ROOT / "src" / "repro_torch" / part
     files = [target] if target.suffix else sorted(target.glob("*.py"))
