@@ -29,8 +29,9 @@ Phases (any failure raises and the script exits non-zero):
      the workspace budget cut); ``swa`` at phase 6's shape,
      recurrentgemma-2b's and
      h2o-danube's at S = 8192, and a ragged one, also held in norm
-     (``SWA_NORM_TOL``); ``rglru`` at phase 6's
-     shape and a ragged one with h0 != 0; ``mlstm`` at phase 8's call in
+     (``SWA_NORM_TOL``), and phase 8b's prefill in fp32 and bf16;
+     ``rglru`` at phase 6's shape, a ragged one with h0 != 0 and phase
+     8b's decode step (B = 4, S = 1, h0 != 0); ``mlstm`` at phase 8's call in
      bf16 and fp32, a ragged S, a long memory, input gates near -80 and
      -100 and a shape the step-by-step oracle can run, all held at fp32
      level (``MLSTM_NORM_TOL``), each case recording the body it ran (the
@@ -111,6 +112,23 @@ Phases (any failure raises and the script exits non-zero):
      sLSTM; bf16 compute, fp32 weights from a seeded generator), as phase 6:
      every mLSTM block launched ``mlstm``, the same checks, and one mLSTM
      and one sLSTM block timed apart at the route's (8, 4096, 2048);
+  8b. the serving path (``prefill``, ``decode_step``, ``generate``, the
+     continuous-batching engine): (a) recurrentgemma-2b at full width and
+     depth in fp32, 2 prompts of 2100 tokens (the 2048-slot rings wrap in
+     prefill) and 16 greedy decode steps, each step's logits against the
+     last position of a train-mode forward over the sequence
+     (``SERVE_FP32_TOL``); (b) the same model in bf16, 4 prompts of 2560
+     and 32 steps, the kernels against their plain versions and an int8
+     KV cache against the bf16 one, in norm; prefill seconds, ms per
+     decode step, peak memory; (c) the engine in fp32, 8 requests of
+     64-2300 prompt tokens and 4-12 new ones through 3 slots, each against
+     its own batch-1 ``generate``; (d) xlstm-1.3b at full width, 8 layers
+     (7 mLSTM + 1 sLSTM), 2 prompts of 1000, each mLSTM block's final
+     (C, n, m) against ``mlstm_chunkwise_ref``'s, 8 decode steps against
+     the forward; (e) ``python -m repro_torch.serve`` as written.  Each
+     prefill launched ``swa``, ``rglru`` and ``mlstm`` once per block of
+     their kind and each decode step ``rglru`` once per RG-LRU block, and
+     nothing else;
   9. the ``gram_tri`` and ``gram_dense`` cases of phase 3 at the main
      path's and the full shape, and the bf16 ragged ones, split by
      ``torch.profiler`` into device time per kernel, theirs and the
@@ -118,8 +136,9 @@ Phases (any failure raises and the script exits non-zero):
      its four grids: last, because a profiler session slows the host side
      of every later launch in the process.
 
-The last three lines of standard output are the ``{"kernels": ...}`` JSON
-line, the card's name and power limit from nvidia-smi, and
+The last four lines of standard output are the script's seconds so far
+(``{"phase": "total", ...}``), the ``{"kernels": ...}`` JSON line, the
+card's name and power limit from nvidia-smi, and
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -742,6 +761,15 @@ def mlstm_device_splits(torch, mlstm_kernel, cases, gen) -> None:
 KERNEL_KINDS = ("swa", "rglru", "mlstm")   # each block of the kind launches it
 
 
+def all_launches(wrappers) -> dict:
+    return {name: n for w in wrappers.values() for name, n in w.LAUNCHES.items()}
+
+
+def reset_all(wrappers) -> None:
+    for w in wrappers.values():
+        w.reset_launches()
+
+
 def block_errors(torch, params, cfg, tokens):
     """Every block of a kind in ``KERNEL_KINDS`` against its plain version
     on the same input, layer by layer along the kernel path: the largest
@@ -756,9 +784,9 @@ def block_errors(torch, params, cfg, tokens):
     for layer, kind in zip(params["layers"], cfg.layer_kinds()):
         if kind in KERNEL_KINDS:
             h = rmsnorm(layer["ln1"], x, cfg.norm_eps)
-            o = transformer.mixer(layer, cfg, kind, h).float()
+            o = transformer.mixer(layer, cfg, kind, h)[0].float()
             o_p = transformer.mixer(layer, cfg, kind, h,
-                                    use_kernel=False).float()
+                                    use_kernel=False)[0].float()
             worst["rel"] = max(worst["rel"], rel_err(torch, o, o_p)[1])
             worst["norm_rel"] = max(worst["norm_rel"], norm_rel(torch, o, o_p))
             worst["blocks"] += 1
@@ -848,8 +876,7 @@ def backbone_route(torch, cfg, wrappers, n_batches):
                                         m=m))
     test_tokens, test_labels = next(backbone.token_batches(
         gen, 1, n=batch, seq=seq, m=m))
-    for w in wrappers.values():
-        w.reset_launches()
+    reset_all(wrappers)
     feats = timed("encode_s", lambda: list(
         backbone.agent_batches(params, cfg, train)))
     stats = timed("stats_s", lambda: pipeline.stream_sufficient_stats(
@@ -861,8 +888,7 @@ def backbone_route(torch, cfg, wrappers, n_batches):
         stats, dataclasses.replace(cfg_admm, u_solver="pcg_counted")))
     acc = timed("eval_s", lambda: backbone.evaluate(
         params, cfg, fmap, state, stats, cfg_admm, test_tokens, test_labels))
-    launches = {name: n for w in wrappers.values()
-                for name, n in w.LAUNCHES.items()}
+    launches = all_launches(wrappers)
     kinds = cfg.layer_kinds()
     n_encode = m * (n_batches + 1)      # training batches + evaluation
     want = dict.fromkeys(launches, 0)
@@ -1748,7 +1774,503 @@ def sharded_phase(torch, kernel) -> dict:
     return out
 
 
+# phase 8b: the serving path.  SERVE_FP32_TOL bounds, as a share of max
+# |logit|, fp32 decode logits against the last position of a train-mode
+# forward over the same sequence, and an engine request's logits against its
+# batch-1 generate (both with fp32 caches).  It sits between the sound
+# readings and those of two broken copies of the decode path
+# (tools/serving_mutant_check.py; PERF.md section 6): sound 1.7e-6
+# (recurrentgemma-2b, 26 layers), 5.2e-5 (xlstm-1.3b, 8 layers: its
+# mLSTM decode step sums C in another order than the kernel); a ring slot
+# off by one 7.0e-4 to 1.6e-3 a step; a conv state not carried 9.6e-2.
+SERVE_FP32_TOL = 2e-4
+# bf16 logits in norm: the kernels against their plain versions on the same
+# tokens, and int8 KV caches against bf16 ones.  A random 26-layer
+# recurrentgemma-2b amplifies a perturbation of ~2^-9 of an element about
+# tenfold into its logits at one position, so both sit on a noise floor
+# (tools/serving_mutant_check.py --part bf16; PERF.md section 6): the bf16
+# path against itself with k and v rounded once more reads 2.22e-2; kernels
+# against plain 2.01e-2, int8 against bf16 2.31e-2.  Subtle faults hide in
+# that floor: int8 truncation 2.36e-2 and an int8 scale one ulp up 2.30e-2
+# (INT8_ROW_TOL catches both), the swa kernel called with a window one
+# short 2.22e-2 (not caught here).  Each limit sits below a gross fault:
+# the rglru kernel from a zero state 3.26e-2, int8 scales written one slot
+# on 6.21e-2.
+SERVE_BF16_NORM_TOL = 2.7e-2
+SERVE_INT8_NORM_TOL = 3.5e-2
+# an int8 KV element as read back against the bf16 value it was written
+# from, as a share of the bound that round-half-even quantization with a
+# bf16 scale meets (int8_row_err): 1, and 1e-3 for the fp32 rounding of
+# x / s.  A bound, not a reading: sound 1.0000033; int8 truncation 2.00, a
+# scale one ulp up 2.97, scales written one slot on 221.
+INT8_ROW_TOL = 1.001
+# the mLSTM's final (C, n) after a prefill against mlstm_chunkwise_ref's,
+# of max |ref|, and m in absolute terms: the same fp32 sums in two orders
+SERVE_STATE_TOL = TOL["fp32"]
+# (c): prompts and new tokens of the engine's 8 requests, 3 slots
+ENGINE_PROMPTS = (64, 2300, 700, 1800, 128, 2100, 1024, 333)
+ENGINE_MAX_NEW = (4, 12, 7, 9, 5, 11, 6, 8)
+ENGINE_SLOTS = 3
+
+
+def last_logits(torch, params, cfg, seq, use_kernel: bool = True):
+    """The train-mode forward over ``seq`` (B, S), unembedding only the last
+    position: (B, vocab) fp32 (full logits at S = 2116 would be 4.3 GB)."""
+    from repro_torch.models import transformer
+
+    with torch.no_grad():
+        x, _ = transformer.forward_features(params, cfg, seq,
+                                            use_kernel=use_kernel)
+        return transformer.head_logits(params, cfg, x[:, -1])
+
+
+def expected_launches(cfg, wrappers, prefills: int = 0, steps: int = 0):
+    """What the serving path must launch: each prefill ``swa``, ``rglru`` and
+    ``mlstm`` once per block of their kind, each decode step ``rglru`` once
+    per RG-LRU block, and nothing else."""
+    kinds = cfg.layer_kinds()
+    want = dict.fromkeys(all_launches(wrappers), 0)
+    want.update(swa=prefills * kinds.count("swa"),
+                mlstm=prefills * kinds.count("mlstm"),
+                rglru=(prefills + steps) * kinds.count("rglru"))
+    return want
+
+
+def serve_vs_forward(torch, params, cfg, wrappers, prompt, steps: int):
+    """Phase 8b (a) and (d): ``prefill`` (fp32 caches), then ``steps``
+    greedy ``decode_step`` calls, each call's logits against the last
+    position of a train-mode forward over the whole sequence so far.  The
+    launches of the prefill and of each decode step are read apart (the
+    forward's own launches are not counted).  No limit is checked here:
+    returns the record, with the prefill's cache entries under
+    "prefill_layers"."""
+    from repro_torch.models import transformer
+
+    B, S = prompt.shape
+    reset_all(wrappers)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    lg, cache = transformer.prefill(params, cfg, prompt, S + steps,
+                                    cache_dtype=torch.float32)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t
+    prefill_launches = all_launches(wrappers)
+    # the prefill's entries (a decode step writes KV lines in place, and
+    # returns new recurrent states)
+    prefill_layers = list(cache["layers"])
+    errs = [rel_err(torch, lg[:, -1], last_logits(torch, params, cfg,
+                                                  prompt))[1]]
+    seq, step_launches, step_ms = prompt, [], []
+    for _ in range(steps):
+        nt = lg[:, -1].argmax(-1, keepdim=True)
+        seq = torch.cat([seq, nt], dim=1)
+        reset_all(wrappers)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        lg, cache = transformer.decode_step(params, cfg, nt, cache)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t) * 1e3)
+        step_launches.append(all_launches(wrappers))
+        errs.append(rel_err(torch, lg[:, -1], last_logits(
+            torch, params, cfg, seq))[1])
+    finite = bool(torch.isfinite(lg).all())
+    return {"B": B, "S": S, "steps": steps, "prefill_s": prefill_s,
+            "decode_ms_median": statistics.median(step_ms),
+            "logits_vs_forward_rel": errs, "max_rel": max(errs),
+            "finite": finite, "prefill_launches": prefill_launches,
+            "step_launches": step_launches, "prefill_layers": prefill_layers}
+
+
+def check_serve_launches(cfg, wrappers, rec, label) -> None:
+    want = expected_launches(cfg, wrappers, prefills=1)
+    check(rec["prefill_launches"] == want, f"{label}: prefill launched "
+          f"{rec['prefill_launches']}, expected {want}")
+    want = expected_launches(cfg, wrappers, steps=1)
+    for i, got in enumerate(rec["step_launches"]):
+        check(got == want, f"{label}: decode step {i} launched {got}, "
+              f"expected {want}")
+
+
+def greedy_logits(torch, params, cfg, prompt, steps: int, max_len: int,
+                  **kw):
+    """``prefill`` and ``steps`` greedy ``decode_step`` calls, as
+    ``generate`` runs them: (the (B, 1) tokens decoded, the (B, vocab)
+    logits of the prefill and of each step).  ``kw`` goes to both (the
+    prefill also takes ``cache_dtype``)."""
+    from repro_torch.models import transformer
+
+    step_kw = {k: v for k, v in kw.items() if k != "cache_dtype"}
+    lg, cache = transformer.prefill(params, cfg, prompt, max_len, **kw)
+    tokens, logits = [], [lg[:, -1]]
+    for _ in range(steps):
+        tokens.append(lg[:, -1].argmax(-1, keepdim=True))
+        lg, cache = transformer.decode_step(params, cfg, tokens[-1], cache,
+                                            **step_kw)
+        logits.append(lg[:, -1])
+    return tokens, logits
+
+
+def kv_lines(torch, cfg, cache, first_only: bool = False):
+    """The (k, v) lines of a cache's attention entries (of the first one
+    only, with ``first_only``), read into fp32: ``kvquant.read_all`` for
+    int8 lines."""
+    from repro_torch.models.kvquant import QuantizedKV, read_all
+
+    out = []
+    for kind, entry in zip(cfg.layer_kinds(), cache["layers"]):
+        if kind in ("attn", "swa"):
+            out += [read_all(x, torch.float32) if isinstance(x, QuantizedKV)
+                    else x.float() for x in (entry["k"], entry["v"])]
+            if first_only:
+                break
+    return out
+
+
+def replay_logits(torch, params, cfg, prompt, tokens, max_len: int, **kw):
+    """``prefill`` and one ``decode_step`` for each of ``tokens``, whatever
+    the logits say: (the (B, vocab) logits of the prefill and of each step,
+    ``kv_lines`` right after the prefill, and of the first attention entry
+    after the first step)."""
+    from repro_torch.models import transformer
+
+    lg, cache = transformer.prefill(params, cfg, prompt, max_len, **kw)
+    after_prefill = kv_lines(torch, cfg, cache)
+    logits, first_step = [lg[:, -1]], None
+    for nt in tokens:
+        lg, cache = transformer.decode_step(params, cfg, nt, cache, **kw)
+        logits.append(lg[:, -1])
+        if first_step is None:
+            first_step = kv_lines(torch, cfg, cache, first_only=True)
+    return logits, after_prefill, first_step
+
+
+def int8_row_err(torch, int8_lines, lines, slot=None) -> float:
+    """The largest error of an int8 KV element as read back (``read_all``
+    into fp32) against the bf16 value x it was written from, as a share of
+    the bound that sound quantization meets: with s = max|x| / 127 in fp32
+    and s_b = bf16(s), q = round(x / s) errs by s/2 at most and the stored
+    scale by |q| |s_b - s|, so |q s_b - x| <= s/2 + (|x|/s + 1/2) |s_b - s|
+    (INT8_ROW_TOL).  ``slot``: that slot of each line only."""
+    worst = 0.0
+    for got, want in zip(int8_lines, lines):
+        if slot is not None:
+            got, want = got[:, slot], want[:, slot]
+        s = torch.clamp(want.abs().amax(-1, keepdim=True), min=1e-6) / 127.0
+        ds = (s.to(torch.bfloat16).float() - s).abs()
+        bound = 0.5 * s + (want.abs() / s + 0.5) * ds
+        worst = max(worst, float(((got - want).abs() / bound).max()))
+    return worst
+
+
+def serve_bf16(torch, params, cfg, wrappers, prompt, steps: int) -> dict:
+    """Phase 8b (b): bf16 compute.  ``generate``-style greedy decoding with
+    the kernels, then on the same tokens the kernels' plain versions
+    (``use_kernel=False``) and an int8 KV cache (``kv_quant=True``), each
+    step's logits held in norm against the kernel run's.  The int8 run's
+    KV rows as read back are held against the bf16 rows they were written
+    from (``int8_row_err``): every row of the prefill (no prefill reads its
+    cache, so both runs write the same k and v), and the first attention
+    block's row of the first decode step (no block before it reads a
+    cache)."""
+    from repro_torch.models import transformer
+
+    B, S = prompt.shape
+    max_len = S + steps
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_all(wrappers)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    lg, cache = transformer.prefill(params, cfg, prompt, max_len)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t
+    prefill_launches = all_launches(wrappers)
+    after_prefill, first_step = kv_lines(torch, cfg, cache), None
+    logits, tokens, step_ms, step_launches = [lg[:, -1]], [], [], []
+    for _ in range(steps):
+        nt = lg[:, -1].argmax(-1, keepdim=True)
+        tokens.append(nt)
+        reset_all(wrappers)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        lg, cache = transformer.decode_step(params, cfg, nt, cache)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t) * 1e3)
+        step_launches.append(all_launches(wrappers))
+        logits.append(lg[:, -1])
+        if first_step is None:
+            first_step = kv_lines(torch, cfg, cache, first_only=True)
+    peak_gb = torch.cuda.max_memory_allocated() / 2**30
+    del cache
+    out = {"B": B, "S": S, "steps": steps, "prefill_s": prefill_s,
+           "decode_ms_median": statistics.median(step_ms),
+           "decode_ms": step_ms, "peak_mem_gb": peak_gb,
+           "prefill_launches": prefill_launches,
+           "step_launches": step_launches}
+    for label, c, kw in (("plain", cfg, {"use_kernel": False}),
+                         ("int8_kv", dataclasses.replace(cfg, kv_quant=True),
+                          {})):
+        rows, q_prefill, q_step = replay_logits(torch, params, c, prompt,
+                                                tokens, max_len, **kw)
+        norms = [norm_rel(torch, a, b) for a, b in zip(rows, logits)]
+        agree = [float((a.argmax(-1) == b.argmax(-1)).float().mean())
+                 for a, b in zip(rows, logits)]
+        out[label] = {"norm_rel": norms, "max_norm_rel": max(norms),
+                      "greedy_agreement": statistics.mean(agree)}
+    # q_*: the int8 run's lines; the decode step wrote position S
+    slot = S % first_step[0].shape[1]
+    out["int8_kv"]["row_err"] = max(
+        int8_row_err(torch, q_prefill, after_prefill),
+        int8_row_err(torch, q_step, first_step, slot))
+    out["finite"] = bool(all(torch.isfinite(x).all() for x in logits))
+    return out
+
+
+def top2_margin(torch, row) -> float:
+    top = torch.topk(row.float(), 2).values
+    return float(top[0] - top[1])
+
+
+def serve_engine(torch, params, cfg, wrappers, gen) -> dict:
+    """Phase 8b (c): the continuous-batching engine, fp32 caches, 8 ragged
+    requests through ENGINE_SLOTS slots, each request against its own
+    batch-1 ``generate``: its logits within SERVE_FP32_TOL of max |logit|
+    up to the first token where the two runs part, and its tokens equal
+    wherever the sequential run's top-2 margin exceeds twice that limit
+    (past a parting, the two runs decode different tokens)."""
+    from repro_torch.serving.scheduler import ContinuousBatchingEngine, Request
+
+    max_len = max(ENGINE_PROMPTS) + max(ENGINE_MAX_NEW)
+    prompts = [torch.randint(0, cfg.vocab_size, (n,), device="cuda",
+                             generator=gen) for n in ENGINE_PROMPTS]
+    reqs = [Request(rid=i, prompt=p, max_new=k, logits=[])
+            for i, (p, k) in enumerate(zip(prompts, ENGINE_MAX_NEW))]
+    eng = ContinuousBatchingEngine(params, cfg, ENGINE_SLOTS, max_len,
+                                   cache_dtype=torch.float32)
+    for r in reqs:
+        eng.submit(r)
+    reset_all(wrappers)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    stats = eng.run()
+    torch.cuda.synchronize()
+    engine_s = time.perf_counter() - t
+    launches = all_launches(wrappers)
+    per_req = []
+    for r, p in zip(reqs, prompts):
+        _, rows = greedy_logits(torch, params, cfg, p[None], r.max_new - 1,
+                                max_len, cache_dtype=torch.float32)
+        want = [int(row[0].argmax()) for row in rows]
+        errs, parted, margin_at_parting = [], None, None
+        for j, (got_row, want_row) in enumerate(zip(r.logits, rows)):
+            errs.append(rel_err(torch, got_row, want_row[0])[1])
+            if r.output[j] != want[j]:
+                parted = j
+                margin_at_parting = top2_margin(torch, want_row[0]) / float(
+                    want_row[0].abs().max())
+                break
+        per_req.append({"rid": r.rid, "prompt": len(p), "max_new": r.max_new,
+                        "tokens_equal": r.output == want,
+                        "first_parting": parted,
+                        "rel_margin_at_parting": margin_at_parting,
+                        "max_rel": max(errs)})
+    del eng
+    return {"requests": len(reqs), "slots": ENGINE_SLOTS,
+            "max_len": max_len, "seconds": engine_s,
+            "stats": dataclasses.asdict(stats), "launches": launches,
+            "per_request": per_req,
+            "max_rel": max(q["max_rel"] for q in per_req)}
+
+
+def serve_xlstm_states(torch, params, cfg, layers, prompt) -> dict:
+    """Phase 8b (d): each mLSTM block's final (C, n, m) in ``prefill``'s
+    cache entries ``layers`` against ``mlstm_chunkwise_ref``'s final state
+    on the same block inputs (the layers walked again in train mode), in
+    fp32."""
+    from repro_torch.kernels.mlstm.ref import mlstm_chunkwise_ref
+    from repro_torch.models import transformer, xlstm
+    from repro_torch.models.layers import rmsnorm
+
+    worst = {"C_rel": 0.0, "n_rel": 0.0, "m_abs": 0.0, "blocks": 0}
+    with torch.no_grad():
+        x = transformer._embed_tokens(params, cfg, prompt)
+        for layer, kind, entry in zip(params["layers"], cfg.layer_kinds(),
+                                      layers):
+            if kind == "mlstm":
+                h = rmsnorm(layer["ln1"], x, cfg.norm_eps)
+                q, k, v, log_f, i_gate, _ = xlstm.mlstm_inputs(
+                    layer["mlstm"], cfg, h)
+                _, (C, n, m) = mlstm_chunkwise_ref(
+                    q, k, v, log_f, i_gate, cfg.chunk_size, final_state=True)
+                worst["C_rel"] = max(worst["C_rel"],
+                                     rel_err(torch, entry.C, C)[1])
+                worst["n_rel"] = max(worst["n_rel"],
+                                     rel_err(torch, entry.n, n)[1])
+                worst["m_abs"] = max(worst["m_abs"],
+                                     float((entry.m - m).abs().max()))
+                worst["blocks"] += 1
+                del q, k, v, C, n
+            x, _, _ = transformer.block_apply(layer, cfg, kind, x)
+    return worst
+
+
+def serving_phase(torch, wrappers) -> dict:
+    """Phase 8b: the serving path on the card.  (a) recurrentgemma-2b at full
+    width and depth, fp32 compute: 2 prompts of 2100 tokens (past the 2048
+    window: the rings wrap in prefill), 16 greedy decode steps, each step's
+    logits against the forward (SERVE_FP32_TOL); (b) the same model in bf16,
+    4 prompts of 2560, 32 steps, the kernels against their plain versions
+    and the int8 cache against bf16 in norm; (c) the engine at fp32; (d)
+    xlstm-1.3b at full width, 8 layers (7 mLSTM + 1 sLSTM), 2 prompts of
+    1000 (ragged last chunk of 256), the final mLSTM states and 8 decode
+    steps; (e) ``python -m repro_torch.serve`` as written.  Every part
+    checks its kernel launches: each prefill ``swa``, ``rglru`` and
+    ``mlstm`` once per block of the kind, each decode step ``rglru`` once
+    per RG-LRU block.  Each part's line is printed before its checks."""
+    from repro_torch import configs, serve
+    from repro_torch.models import transformer
+
+    t_phase = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(24)
+    rg = configs.get_config("recurrentgemma-2b")
+    rg32 = dataclasses.replace(rg, dtype="float32")
+    params = transformer.init_model(
+        torch.Generator(device="cuda").manual_seed(0), rg)
+    out = {"launches": {}}
+
+    # (a) fp32, decode against the forward
+    t = time.perf_counter()
+    prompt = torch.randint(0, rg.vocab_size, (2, 2100), device="cuda",
+                           generator=gen)
+    rec = serve_vs_forward(torch, params, rg32, wrappers, prompt, 16)
+    del rec["prefill_layers"]
+    rec["seconds"] = time.perf_counter() - t
+    emit({"phase": "serving_a_fp32", **{k: v for k, v in rec.items()
+                                        if k != "step_launches"},
+          "step_launches": rec["step_launches"][0], "tol": SERVE_FP32_TOL})
+    check(rec["finite"], "serving (a): non-finite logits")
+    check_serve_launches(rg32, wrappers, rec, "serving (a)")
+    check(rec["max_rel"] <= SERVE_FP32_TOL, f"serving (a): decode logits off "
+          f"the forward by {rec['max_rel']:.3g} of max |logit|, above "
+          f"{SERVE_FP32_TOL}")
+    out["a_fp32"] = {k: rec[k] for k in ("max_rel", "prefill_s",
+                                         "decode_ms_median", "seconds")}
+    out["launches"]["a"] = {"prefill": rec["prefill_launches"],
+                            "decode_step": rec["step_launches"][0]}
+
+    # (b) bf16: kernels against plain versions, int8 against bf16 caches
+    t = time.perf_counter()
+    prompt = torch.randint(0, rg.vocab_size, (4, 2560), device="cuda",
+                           generator=gen)
+    rec = serve_bf16(torch, params, rg, wrappers, prompt, 32)
+    rec["seconds"] = time.perf_counter() - t
+    emit({"phase": "serving_b_bf16", **{k: v for k, v in rec.items()
+                                        if k != "step_launches"},
+          "step_launches": rec["step_launches"][0],
+          "tol": {"plain_norm": SERVE_BF16_NORM_TOL,
+                  "int8_norm": SERVE_INT8_NORM_TOL,
+                  "int8_row": INT8_ROW_TOL}})
+    check(rec["finite"], "serving (b): non-finite logits")
+    check_serve_launches(rg, wrappers, rec, "serving (b)")
+    check(rec["plain"]["max_norm_rel"] <= SERVE_BF16_NORM_TOL,
+          f"serving (b): bf16 logits off their plain versions by "
+          f"{rec['plain']['max_norm_rel']:.3g} in norm, above "
+          f"{SERVE_BF16_NORM_TOL}")
+    check(rec["int8_kv"]["max_norm_rel"] <= SERVE_INT8_NORM_TOL,
+          f"serving (b): int8-cache logits off the bf16 cache's by "
+          f"{rec['int8_kv']['max_norm_rel']:.3g} in norm, above "
+          f"{SERVE_INT8_NORM_TOL}")
+    check(rec["int8_kv"]["row_err"] <= INT8_ROW_TOL,
+          f"serving (b): an int8 KV element read back off the bf16 value it "
+          f"was written from by {rec['int8_kv']['row_err']:.4g} of its "
+          f"bound, above {INT8_ROW_TOL:.4g}")
+    out["b_bf16"] = {k: rec[k] for k in ("prefill_s", "decode_ms_median",
+                                         "peak_mem_gb", "seconds")}
+    out["b_bf16"].update(plain_max_norm_rel=rec["plain"]["max_norm_rel"],
+                         int8_max_norm_rel=rec["int8_kv"]["max_norm_rel"],
+                         int8_row_err=rec["int8_kv"]["row_err"])
+    out["launches"]["b"] = {"prefill": rec["prefill_launches"],
+                            "decode_step": rec["step_launches"][0]}
+    torch.cuda.empty_cache()
+
+    # (c) the continuous-batching engine, fp32
+    t = time.perf_counter()
+    rec = serve_engine(torch, params, rg32, wrappers, gen)
+    rec["seconds_with_checks"] = time.perf_counter() - t
+    emit({"phase": "serving_c_engine", **rec, "tol": SERVE_FP32_TOL})
+    st = rec["stats"]
+    check(st["completed"] == len(ENGINE_PROMPTS)
+          and st["decoded_tokens"] == sum(ENGINE_MAX_NEW),
+          f"serving (c): engine stats {st}")
+    want = expected_launches(rg32, wrappers, prefills=st["prefills"],
+                             steps=st["steps"])
+    check(rec["launches"] == want, f"serving (c): the engine launched "
+          f"{rec['launches']}, expected {want}")
+    for q in rec["per_request"]:
+        check(q["max_rel"] <= SERVE_FP32_TOL, f"serving (c): request "
+              f"{q['rid']}'s logits off its batch-1 generate by "
+              f"{q['max_rel']:.3g}, above {SERVE_FP32_TOL}")
+        if q["first_parting"] is not None:
+            check(q["rel_margin_at_parting"] <= 2 * SERVE_FP32_TOL,
+                  f"serving (c): request {q['rid']} parted from its batch-1 "
+                  f"generate at token {q['first_parting']} with a top-2 "
+                  f"margin of {q['rel_margin_at_parting']:.3g} of max "
+                  f"|logit|")
+    out["c_engine"] = {k: rec[k] for k in ("max_rel", "seconds")}
+    out["c_engine"]["steps"] = st["steps"]
+    out["launches"]["c"] = rec["launches"]
+    del params
+    torch.cuda.empty_cache()
+
+    # (d) xlstm-1.3b at full width, one cycle of 8 layers, fp32
+    t = time.perf_counter()
+    xl = dataclasses.replace(configs.get_config("xlstm-1.3b"), n_layers=8,
+                             dtype="float32")
+    params = transformer.init_model(
+        torch.Generator(device="cuda").manual_seed(0), xl)
+    prompt = torch.randint(0, xl.vocab_size, (2, 1000), device="cuda",
+                           generator=gen)
+    rec = serve_vs_forward(torch, params, xl, wrappers, prompt, 8)
+    states = serve_xlstm_states(torch, params, xl, rec.pop("prefill_layers"),
+                                prompt)
+    rec["seconds"] = time.perf_counter() - t
+    emit({"phase": "serving_d_xlstm", **{k: v for k, v in rec.items()
+                                         if k != "step_launches"},
+          "step_launches": rec["step_launches"][0], "final_state": states,
+          "tol": {"decode": SERVE_FP32_TOL, "state": SERVE_STATE_TOL}})
+    check(rec["finite"], "serving (d): non-finite logits")
+    check_serve_launches(xl, wrappers, rec, "serving (d)")
+    check(states["blocks"] == xl.layer_kinds().count("mlstm")
+          and max(states["C_rel"], states["n_rel"]) <= SERVE_STATE_TOL
+          and states["m_abs"] <= SERVE_STATE_TOL,
+          f"serving (d): final mLSTM states off mlstm_chunkwise_ref's by "
+          f"{states}, above {SERVE_STATE_TOL}")
+    check(rec["max_rel"] <= SERVE_FP32_TOL, f"serving (d): decode logits off "
+          f"the forward by {rec['max_rel']:.3g}, above {SERVE_FP32_TOL}")
+    out["d_xlstm"] = {k: rec[k] for k in ("max_rel", "prefill_s",
+                                          "decode_ms_median", "seconds")}
+    out["d_xlstm"]["final_state"] = states
+    out["launches"]["d"] = {"prefill": rec["prefill_launches"],
+                            "decode_step": rec["step_launches"][0]}
+    del params
+    torch.cuda.empty_cache()
+
+    # (e) the serving example as written
+    reset_all(wrappers)
+    t = time.perf_counter()
+    ex = serve.main(device="cuda")
+    example = all_launches(wrappers)
+    check(ex["engine"]["completed"] == 8, f"serve example: {ex['engine']}")
+    check(all(example[k] > 0 for k in ("swa", "rglru", "mlstm")),
+          f"serve example launched {example}")
+    out["e_example"] = {"seconds": time.perf_counter() - t, **ex,
+                        "launches": example}
+    out["seconds"] = time.perf_counter() - t_phase
+    return out
+
+
 def main() -> int:
+    t_start = time.perf_counter()
     import torch
 
     if not torch.cuda.is_available():
@@ -1878,7 +2400,8 @@ def main() -> int:
                 torch, kernel, ref, "gram_dense", shape, precision, None,
                 gen, label))
     # swa: phase 6's call first, then recurrentgemma-2b's and h2o-danube's
-    # widths at S = 8192, then a ragged case; rglru: phase 6's call, ragged
+    # widths at S = 8192, a ragged case and phase 8b's prefill (a); rglru:
+    # phase 6's call, ragged, and phase 8b's decode step (S = 1, h0 != 0)
     cases["swa"] = [
         swa_case(torch, swa_kernel, swa_ref, shape, precision, gen, label)
         for label, shape, precision in (
@@ -1887,12 +2410,16 @@ def main() -> int:
             ("recurrentgemma_s8192", (1, 10, 1, 8192, 256, 2048), "bf16"),
             ("h2o_danube_s8192", (1, 32, 8, 8192, 120, 4096), "bf16"),
             ("ragged", (2, 4, 2, 1000, 64, 100), "fp32"),
-            ("ragged", (2, 4, 2, 1000, 64, 100), "bf16"))]
+            ("ragged", (2, 4, 2, 1000, 64, 100), "bf16"),
+            ("serving_prefill", (2, 10, 1, 2100, 256, 2048), "fp32"),
+            ("serving_prefill", (2, 10, 1, 2100, 256, 2048), "bf16"))]
     cases["rglru"] = [
         rglru_case(torch, rglru_kernel, rglru_scan_ref, (8, 4096, 2560), gen,
                    "main_path", h0_zero=True),
         rglru_case(torch, rglru_kernel, rglru_scan_ref, (3, 1000, 300), gen,
-                   "ragged", h0_zero=False)]
+                   "ragged", h0_zero=False),
+        rglru_case(torch, rglru_kernel, rglru_scan_ref, (4, 1, 2560), gen,
+                   "serving_decode", h0_zero=False)]
     # mlstm: phase 8's call first (bf16, then fp32), then a ragged S, a long
     # memory at full width, input gates where e^-m is ~1e35 and +inf, and a
     # shape that the step-by-step oracle runs too
@@ -2202,8 +2729,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # 7. the backbone example as written ----------------------------------------
-    for w in wrappers.values():
-        w.reset_launches()
+    reset_all(wrappers)
     t0 = time.perf_counter()
     bb = backbone.main(device="cuda")
     check(kernel.LAUNCHES["gram_fused"] == backbone.N_BATCHES,
@@ -2240,6 +2766,11 @@ def main() -> int:
     del params, x, tokens
     torch.cuda.empty_cache()
 
+    # 8b. the serving path ----------------------------------------------------
+    serving = serving_phase(torch, wrappers)
+    emit({"phase": "serving", **serving})
+    torch.cuda.empty_cache()
+
     sources = {"gram_tri": "src/repro/kernels/gram/kernel.py:224",
                "gram_fused": "src/repro/kernels/gram/kernel.py:464",
                "gram_tri_q": "src/repro/kernels/gram/kernel.py:334",
@@ -2260,6 +2791,12 @@ def main() -> int:
     launches.update(swa=route6["launches"]["swa"],
                     rglru=route6["launches"]["rglru"],
                     mlstm=route8["launches"]["mlstm"])
+    # the serving path's launches of each kernel, by part of phase 8b
+    serving_launches = {
+        name: {part: ({k: v[name] for k, v in rec.items()} if "prefill" in rec
+                      else rec[name])
+               for part, rec in serving["launches"].items()}
+        for name in ("swa", "rglru", "mlstm")}
     rows = []
     for name, cs in cases.items():
         top = cs[0]     # the main path's shape
@@ -2270,8 +2807,11 @@ def main() -> int:
             "plain_ms": top["plain_ms"], "bound_ms": top["bound_ms"],
             "bound_by": top["bound_by"], "library_ms": top["library_ms"],
             **({"body": top["body"]} if "body" in top else {}),
+            **({"serving_launches": serving_launches[name]}
+               if name in serving_launches else {}),
             "cases": cs,
         })
+    emit({"phase": "total", "seconds": time.perf_counter() - t_start})
     emit({"kernels": rows})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -2,7 +2,9 @@
 statistics) into the port's objects on a given device.
 
 ``model_from_numpy`` takes the reference's ``init_model`` pytree (arrays
-that numpy can read) and lays it out as the port's flat layer list.
+that numpy can read) and lays it out as the port's flat layer list;
+``cache_from_numpy`` does the same for a decode cache (``prefill``'s), so
+that the port can decode on from a cache that the reference filled.
 
 ``Graph`` needs nothing: the port builds it from the same generator and
 seed, and gets the same edge list."""
@@ -14,6 +16,9 @@ import torch
 
 from repro_torch.core.elm import ELMFeatureMap
 from repro_torch.core.engine import DenseState, SufficientStats
+from repro_torch.models.kvquant import QuantizedKV
+from repro_torch.models.rglru import RGLRUState
+from repro_torch.models.xlstm import MLSTMState, SLSTMState
 
 
 def _tensor(x, device) -> torch.Tensor:
@@ -73,7 +78,7 @@ def model_from_numpy(params, cfg, device="cuda"):
     leaf becomes fp32."""
     if params.get("encoder") is not None:
         raise NotImplementedError(
-            "encoder-decoder models come with the LM-substrate slice")
+            "encoder-decoder models come with the encoder-decoder slice")
     n_cycles = cfg.n_layers // len(cfg.block_pattern)
     layers = []
     for c in range(n_cycles):
@@ -89,3 +94,67 @@ def model_from_numpy(params, cfg, device="cuda"):
     if "lm_head" in params:
         out["lm_head"] = _tree_tensors(params["lm_head"], device)
     return out
+
+
+def _array_tensor(x, device) -> torch.Tensor:
+    """An array -> a tensor of its own dtype on ``device``; bfloat16 arrays
+    (numpy has no such dtype: the reference's are ml_dtypes') go through
+    their 16-bit pattern."""
+    a = np.asarray(x)
+    if a.dtype.name == "bfloat16":
+        t = torch.from_numpy(a.view(np.int16).copy()).view(torch.bfloat16)
+    else:
+        t = torch.from_numpy(a.copy())
+    return t.to(device)
+
+
+def _entry_from_numpy(entry, kind: str, device, index=None):
+    """One layer's cache entry; ``index`` takes one cycle of stacked
+    leaves."""
+
+    def leaf(x):
+        return _array_tensor(x if index is None else np.asarray(x)[index],
+                             device)
+
+    if kind in ("attn", "swa"):
+        if set(entry) != {"k", "v"}:
+            raise NotImplementedError(
+                "cross-attention caches come with the encoder-decoder slice")
+        out = {}
+        for name in ("k", "v"):
+            line = entry[name]
+            # the reference's QuantizedKV is a (q, scale) named tuple
+            out[name] = (QuantizedKV(*(leaf(t) for t in line))
+                         if isinstance(line, tuple) else leaf(line))
+        return out
+    state = {"rglru": RGLRUState, "mlstm": MLSTMState,
+             "slstm": SLSTMState}.get(kind)
+    if state is None:
+        raise NotImplementedError(f"cache entries of kind {kind!r} are not "
+                                  f"ported yet")
+    return state(*(leaf(t) for t in entry))
+
+
+def cache_from_numpy(cache, cfg, device="cuda"):
+    """The reference's decode cache (``init_cache``/``prefill``, arrays that
+    numpy can read: ``jax.tree.map(np.asarray, cache)``) -> the port's
+    ``{"pos", "layers"}`` on ``device``.  Cycle c's entry j becomes layer
+    c * len(cfg.block_pattern) + j, and ``cache["rem"]`` follows, as in
+    ``model_from_numpy``.  Every tensor keeps its dtype (int8 lines and
+    their bf16 scales included); the named state tuples become the port's
+    ``RGLRUState``, ``MLSTMState`` and ``SLSTMState``."""
+    pattern = cfg.block_pattern
+    n_cycles = cfg.n_layers // len(pattern)
+    layers = []
+    for c in range(n_cycles):
+        layers.extend(_entry_from_numpy(e, kind, device, c)
+                      for e, kind in zip(cache["cycles"], pattern))
+    kinds, first = cfg.layer_kinds(), len(layers)
+    layers.extend(_entry_from_numpy(e, kinds[first + i], device)
+                  for i, e in enumerate(cache["rem"]))
+    if len(layers) != cfg.n_layers:
+        raise ValueError(
+            f"cache holds {len(layers)} layers, cfg {cfg.name!r} has "
+            f"{cfg.n_layers}")
+    return {"pos": _array_tensor(cache["pos"], device).to(torch.int32),
+            "layers": layers}

@@ -7,7 +7,8 @@ chunks: the tests and the ``use_kernel=False`` path use it, and
 ``chip_smoke.py`` holds the CUDA kernel against it on the card.  With
 ``operand_terms`` it models the CUDA kernel's bf16 body, whose two D x D
 products take their fp32 operand (C, and w v) on the tensor cores as a sum
-of bf16 terms; only the tests call it so.
+of bf16 terms; only the tests call it so.  From a carried state (``C0``,
+``n0``, ``m0``) it is the models' decode step, which has no kernel.
 """
 
 from __future__ import annotations
@@ -67,11 +68,21 @@ def bf16_terms(x: torch.Tensor, n: int) -> torch.Tensor:
 def mlstm_chunkwise_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         log_f: torch.Tensor, i_gate: torch.Tensor,
                         chunk: int,
-                        operand_terms: int | None = None) -> torch.Tensor:
-    """The same function in the TPU kernel's chunkwise form, from zero
-    state.  Inputs are widened to fp32 and q is scaled by D^-1/2 before
-    q k^T.  A ragged S is padded with identity steps (log_f = 0, i = -1e30)
-    whose outputs are dropped.  Returns h: (B, H, S, D) fp32.
+                        operand_terms: int | None = None, *,
+                        C0: torch.Tensor | None = None,
+                        n0: torch.Tensor | None = None,
+                        m0: torch.Tensor | None = None,
+                        final_state: bool = False):
+    """The same function in the TPU kernel's chunkwise form.  Inputs are
+    widened to fp32 and q is scaled by D^-1/2 before q k^T.  A ragged S is
+    padded with identity steps (log_f = 0, i = -1e30) whose outputs are
+    dropped.  Returns h: (B, H, S, D) fp32, and with ``final_state=True``
+    (h, (C, n, m)), the fp32 state after the last step.
+
+    ``C0`` (B, H, D, D), ``n0`` (B, H, D) and ``m0`` (B, H) start the
+    recurrence from a carried state (all three, or none for zero state).
+    That is the decode path of the models, and it is plain by design: the
+    TPU kernel, and so the CUDA kernel, runs from zero state only.
 
     ``operand_terms=n`` replaces the fp32 operand of the two D x D products,
     the carried state C in q C^T and w v in the state update, by the sum of
@@ -91,9 +102,12 @@ def mlstm_chunkwise_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         f = F.pad(f, (0, pad))
         ig = F.pad(ig, (0, pad), value=NEG)
     dev = q.device
-    C = torch.zeros((B, H, D, D), device=dev)
-    n = torch.zeros((B, H, D), device=dev)
-    m_prev = torch.full((B, H), NEG, device=dev)
+    if C0 is None:
+        C = torch.zeros((B, H, D, D), device=dev)
+        n = torch.zeros((B, H, D), device=dev)
+        m_prev = torch.full((B, H), NEG, device=dev)
+    else:
+        C, n, m_prev = C0.float(), n0.float(), m0.float()
     causal = torch.ones((c, c), dtype=torch.bool, device=dev).tril()
     out = torch.empty((B, H, S + pad, D), device=dev)
     for t0 in range(0, S + pad, c):
@@ -122,4 +136,6 @@ def mlstm_chunkwise_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         C = decay_C[..., None, None] * C + split(vc * w[..., None]).mT @ kc
         n = decay_C[..., None] * n + (w[..., None, :] @ kc)[..., 0, :]
         m_prev = m_new
+    if final_state:
+        return out[:, :, :S], (C, n, m_prev)
     return out[:, :, :S]

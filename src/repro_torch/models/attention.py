@@ -1,13 +1,16 @@
 """Self-attention: GQA/MQA projections with qk-norm and RoPE, the
-sliding-window kernel for windowed causal blocks, and a plain blocked
-online-softmax ``flash_attention`` for everything else.
+sliding-window kernel for windowed causal blocks, a plain blocked
+online-softmax ``flash_attention`` for everything else, and single-token
+``decode_attention`` against KV caches.
 
-Every ``"swa"`` block of a train-mode forward (positions ``arange(S)``)
-runs ``kernels.swa.ops.swa_attention``: on the card the CUDA ``swa`` kernel
-(the reference's models call their own jnp path instead, and its Pallas
-kernel only from tests).  Global, padded or soft-capped attention takes
-``flash_attention``, plain tensor ops as the reference computes them.
-Cross-attention and decode against KV caches come with the serving slice.
+Every ``"swa"`` block of a full-sequence pass (train mode or prefill,
+positions ``arange(S)``) runs ``kernels.swa.ops.swa_attention``: on the card
+the CUDA ``swa`` kernel (the reference's models call their own jnp path
+instead, and its Pallas kernel only from tests).  Global, padded or
+soft-capped attention takes ``flash_attention``, and a decode step
+``decode_attention``: plain tensor ops as the reference computes them in
+jnp, outside any Pallas kernel.  Cross-attention comes with the
+encoder-decoder slice.
 """
 
 from __future__ import annotations
@@ -126,29 +129,70 @@ def flash_attention(
     return torch.cat(outs, dim=1)[:, :Sq]
 
 
-def self_attention_block(params, cfg: ModelConfig, x: torch.Tensor,
-                         positions: Optional[torch.Tensor] = None, *,
-                         window: Optional[int],
-                         use_kernel: bool = True) -> torch.Tensor:
-    """Causal self-attention.  ``positions=None`` means ``arange(S)`` for
-    every row; a windowed block with those positions runs the ``swa``
-    kernel on (B, H, S, D) views (its plain version with
+def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
+                     v_cache: torch.Tensor, valid: torch.Tensor,
+                     attn_softcap: Optional[float] = None) -> torch.Tensor:
+    """One query token against a cache.  q: (B, 1, H, D); k_cache, v_cache:
+    (B, S, KV, D), RoPE already applied to k; valid: (B, S) bool, the slots
+    that hold a real key.  Scores and sums in fp32, p rounded to the
+    cache's dtype before P V, as in the reference.  Returns (B, 1, H, D) in
+    q's dtype."""
+    B, _, H, D = q.shape
+    KV = k_cache.shape[2]
+    qg = q.reshape(B, KV, H // KV, D).float()
+    s = torch.einsum("bkgd,bskd->bkgs", qg, k_cache.float()) * D ** -0.5
+    s = softcap(s, attn_softcap)
+    s = torch.where(valid[:, None, None, :], s, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("bkgs,bskd->bkgd", p.to(v_cache.dtype).float(),
+                       v_cache.float())
+    return out.reshape(B, 1, H, D).to(q.dtype)
+
+
+def causal_attention(cfg: ModelConfig, q: torch.Tensor, k: torch.Tensor,
+                     v: torch.Tensor, positions: Optional[torch.Tensor], *,
+                     window: Optional[int],
+                     use_kernel: bool = True) -> torch.Tensor:
+    """Causal attention of (B, S, heads, D) q, k, v.  ``positions=None``
+    means ``arange(S)`` for every row; a windowed block with those positions
+    runs the ``swa`` kernel on (B, H, S, D) views (its plain version with
     ``use_kernel=False``), anything else ``flash_attention``."""
-    b, s, _ = x.shape
+    b, s = q.shape[:2]
     kernel_path = window is not None and positions is None
     if kernel_path and cfg.attn_softcap is not None:
         raise NotImplementedError(
             "sliding-window attention with attn_softcap: the swa kernel has "
             "no softcap (nor has the TPU kernel), and no config sets both")
-    if positions is None:
-        positions = torch.arange(s, device=x.device).expand(b, s)
-    q, k, v = _qkv(params, cfg, x, positions)
     if kernel_path:
         out = swa_attention(q.transpose(1, 2), k.transpose(1, 2),
                             v.transpose(1, 2), window=window,
                             force_ref=not use_kernel)
-        out = out.transpose(1, 2)
-    else:
-        out = flash_attention(q, k, v, positions, positions, causal=True,
-                              window=window, attn_softcap=cfg.attn_softcap)
-    return dense(params["wo"], out.reshape(b, s, -1))
+        return out.transpose(1, 2)
+    if positions is None:
+        positions = torch.arange(s, device=q.device).expand(b, s)
+    return flash_attention(q, k, v, positions, positions, causal=True,
+                           window=window, attn_softcap=cfg.attn_softcap)
+
+
+def self_attention_block(params, cfg: ModelConfig, x: torch.Tensor,
+                         positions: Optional[torch.Tensor] = None, *,
+                         window: Optional[int],
+                         use_kernel: bool = True) -> torch.Tensor:
+    """Causal self-attention (``causal_attention`` between the
+    projections and ``wo``).  ``positions=None`` means ``arange(S)``."""
+    return self_attention_with_kv(params, cfg, x, positions, window=window,
+                                  use_kernel=use_kernel)[0]
+
+
+def self_attention_with_kv(params, cfg: ModelConfig, x: torch.Tensor,
+                           positions: Optional[torch.Tensor] = None, *,
+                           window: Optional[int], use_kernel: bool = True):
+    """``self_attention_block`` that also returns the block's k and v
+    (B, S, KV, D), k after RoPE: a prefill caches them."""
+    b, s, _ = x.shape
+    rope_pos = (torch.arange(s, device=x.device).expand(b, s)
+                if positions is None else positions)
+    q, k, v = _qkv(params, cfg, x, rope_pos)
+    out = causal_attention(cfg, q, k, v, positions, window=window,
+                           use_kernel=use_kernel)
+    return dense(params["wo"], out.reshape(b, s, -1)), k, v

@@ -11,8 +11,11 @@ RG-LRU:  r_t = sigmoid(W_r u_t + b_r)          (recurrence gate)
 
 The gates and coefficients are elementwise torch; the recurrence itself is
 ``kernels.rglru.ops.rglru_scan``: on the card the CUDA ``rglru`` kernel (the
-reference's model evaluates it with ``associative_scan`` instead).  Decode
-with carried state comes with the serving slice.
+reference's model evaluates it with ``associative_scan`` instead).  The block
+runs from a carried ``RGLRUState`` too (prefill returns one, each decode step
+takes and returns one): the causal conv starts from the carried inputs and
+the scan kernel from the carried h, so every decode step launches it, at
+S = 1.
 """
 
 from __future__ import annotations
@@ -53,12 +56,16 @@ def rglru_init(gen: torch.Generator, cfg: ModelConfig):
     }
 
 
-def _causal_conv1d(params, x: torch.Tensor):
-    """Depthwise causal conv from a zero history.  x: (B, S, D).  Returns
-    (out, the last w - 1 inputs)."""
+def _causal_conv1d(params, x: torch.Tensor, state_conv=None):
+    """Depthwise causal conv.  x: (B, S, D); state_conv: (B, w - 1, D), the
+    inputs before x, or None for a zero history.  Returns (out, the last
+    w - 1 inputs, in x's dtype)."""
     w = params["w"].shape[0]
     S = x.shape[1]
-    x_pad = F.pad(x, (0, 0, w - 1, 0))
+    if state_conv is None:
+        x_pad = F.pad(x, (0, 0, w - 1, 0))
+    else:
+        x_pad = torch.cat([state_conv.to(x.dtype), x], dim=1)
     out = torch.zeros_like(x)
     for i in range(w):
         out = out + x_pad[:, i:i + S] * params["w"][i].to(x.dtype)
@@ -79,20 +86,21 @@ def _rglru_scan(u, r, i, lam, c: float, h0, use_kernel: bool = True):
 
 def rglru_block(params, cfg: ModelConfig, x: torch.Tensor, state=None, *,
                 use_kernel: bool = True):
-    """x: (B, S, d).  Returns (out, RGLRUState at the last step)."""
-    if state is not None:
-        raise NotImplementedError(
-            "rglru_block from a carried state (decode) comes with the "
-            "serving slice")
+    """x: (B, S, d); ``state``: the ``RGLRUState`` before x, or None for
+    zero state.  Returns (out, RGLRUState at the last step: h fp32, the conv
+    inputs in x's dtype, as the reference carries them)."""
     B = x.shape[0]
     gate = gelu(dense(params["w_gate"], x))
     u = dense(params["w_rnn"], x)
-    u, conv_state = _causal_conv1d(params["conv"], u)
+    u, conv_state = _causal_conv1d(params["conv"], u,
+                                   None if state is None else state.conv)
     uf = u.float()
     r = torch.sigmoid(dense(params["w_r"], uf) + params["b_r"]["b"])
     i = torch.sigmoid(dense(params["w_i"], uf) + params["b_i"]["b"])
-    h0 = torch.zeros((B, cfg.d_rnn), device=x.device)
+    h0 = (torch.zeros((B, cfg.d_rnn), device=x.device) if state is None
+          else state.h)
     h = _rglru_scan(uf, r, i, params["lam"]["lam"], cfg.rglru_c, h0,
                     use_kernel)
     out = dense(params["w_out"], h.to(x.dtype) * gate)
-    return out, RGLRUState(h=h[:, -1], conv=conv_state)
+    # copies, so that a cache holding the state does not hold h and u
+    return out, RGLRUState(h=h[:, -1].clone(), conv=conv_state.clone())

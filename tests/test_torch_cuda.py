@@ -979,3 +979,142 @@ def test_sharded_world_of_two_ranks_on_the_card(gen):
             torch.testing.assert_close(r[name]["objective"],
                                        diags["objective"].cpu(),
                                        rtol=1e-4, atol=1e-5)
+
+
+# --- the serving path on the card ---------------------------------------------
+
+SERVING_SMOKE = {"recurrentgemma-2b": {"n_layers": 5}, "h2o-danube-3-4b": {},
+                 "xlstm-1.3b": {}}
+
+
+def _serving_model(name):
+    from repro_torch import configs
+    from repro_torch.models import transformer
+
+    cfg = dataclasses.replace(configs.get_smoke_config(name),
+                              **SERVING_SMOKE[name])
+    return cfg, transformer.init_model(
+        torch.Generator(device="cuda").manual_seed(0), cfg)
+
+
+def _greedy_rows(params, cfg, prompt, max_new, max_len):
+    """Batch-1 greedy decoding with fp32 caches, as ``generate`` runs it:
+    (the tokens, the (1, vocab) logits each was taken from)."""
+    from repro_torch.models import transformer
+
+    lg, cache = transformer.prefill(params, cfg, prompt, max_len,
+                                    cache_dtype=torch.float32)
+    toks, rows = [], []
+    for i in range(max_new):
+        if i:
+            lg, cache = transformer.decode_step(
+                params, cfg, torch.tensor([[toks[-1]]], device=lg.device),
+                cache)
+        rows.append(lg[:, -1])
+        toks.append(int(lg[0, -1].argmax()))
+    return toks, rows
+
+
+def _reset_serving_launches():
+    for w in (swa_kernel, rglru_kernel, mlstm_kernel):
+        w.reset_launches()
+
+
+def _serving_launches():
+    return (swa_kernel.LAUNCHES["swa"], rglru_kernel.LAUNCHES["rglru"],
+            mlstm_kernel.LAUNCHES["mlstm"])
+
+
+@pytest.mark.parametrize("name", list(SERVING_SMOKE))
+def test_prefill_and_decode_launch_the_kernels(gen, name):
+    """Prefill (S = 40, past the window of 16) and 6 decode steps with the
+    kernels against ``use_kernel=False`` on the card, fp32 (1e-4 of max
+    |plain|); prefill launches ``swa``, ``rglru`` and ``mlstm`` once per
+    block of their kind, each decode step ``rglru`` once per RG-LRU block
+    and nothing else."""
+    from repro_torch.models import transformer
+
+    cfg, params = _serving_model(name)
+    kinds = cfg.layer_kinds()
+    tokens = torch.randint(0, cfg.vocab_size, (2, 40), device="cuda",
+                           generator=gen)
+    _reset_serving_launches()
+    lg, cache = transformer.prefill(params, cfg, tokens, 48,
+                                    cache_dtype=torch.float32)
+    assert _serving_launches() == (kinds.count("swa"), kinds.count("rglru"),
+                                   kinds.count("mlstm"))
+    lg_p, cache_p = transformer.prefill(params, cfg, tokens, 48,
+                                        cache_dtype=torch.float32,
+                                        use_kernel=False)
+    assert _serving_launches() == (kinds.count("swa"), kinds.count("rglru"),
+                                   kinds.count("mlstm"))
+    assert _rel(lg, lg_p) <= TOL["fp32"]
+    for step in range(6):
+        nt = lg[:, -1].argmax(-1, keepdim=True)
+        _reset_serving_launches()
+        lg, cache = transformer.decode_step(params, cfg, nt, cache)
+        assert _serving_launches() == (0, kinds.count("rglru"), 0)
+        lg_p, cache_p = transformer.decode_step(params, cfg, nt, cache_p,
+                                                use_kernel=False)
+        assert _rel(lg, lg_p) <= TOL["fp32"], step
+    assert cache["pos"].tolist() == [46, 46]
+
+
+def test_engine_on_the_card_matches_generate(gen):
+    """The continuous-batching engine (3 slots, 5 ragged requests, fp32
+    caches) on the card with the kernels against ``use_kernel=False``: the
+    same tokens and logits within 1e-4; and each request's tokens equal its
+    batch-1 ``generate``'s, its logits within 1e-4.  The kernel run
+    launched ``swa`` once per swa block a prefill and ``rglru`` once per
+    RG-LRU block a prefill and a decode step; the plain run nothing."""
+    from repro_torch.serving.scheduler import ContinuousBatchingEngine, Request
+    from repro_torch.serving.steps import generate
+
+    cfg, params = _serving_model("recurrentgemma-2b")
+    kinds = cfg.layer_kinds()
+    prompts = [torch.randint(0, cfg.vocab_size, (9 + 7 * i,), device="cuda",
+                             generator=gen) for i in range(5)]
+    runs = {}
+    for use_kernel in (True, False):
+        reqs = [Request(rid=i, prompt=p, max_new=3 + i % 3, logits=[])
+                for i, p in enumerate(prompts)]
+        eng = ContinuousBatchingEngine(params, cfg, batch_slots=3,
+                                       max_len=48, cache_dtype=torch.float32,
+                                       use_kernel=use_kernel)
+        for r in reqs:
+            eng.submit(r)
+        _reset_serving_launches()
+        stats = eng.run()
+        assert stats.completed == 5
+        launches = (kinds.count("swa") * stats.prefills,
+                    kinds.count("rglru") * (stats.prefills + stats.steps), 0)
+        assert _serving_launches() == (launches if use_kernel else (0, 0, 0))
+        runs[use_kernel] = reqs
+    for r, r_plain, p in zip(runs[True], runs[False], prompts):
+        assert r.output == r_plain.output
+        for got, want in zip(r.logits, r_plain.logits):
+            assert _rel(got, want) <= TOL["fp32"]
+        want, rows = _greedy_rows(params, cfg, p[None], r.max_new, 48)
+        assert r.output == want
+        assert want == generate(params, cfg, p[None], r.max_new, 48,
+                                cache_dtype=torch.float32)[0][0].tolist()
+        for got, row in zip(r.logits, rows):
+            assert _rel(got, row[0]) <= TOL["fp32"]
+
+
+def test_rglru_block_from_a_carried_state_on_the_card(gen):
+    """One RG-LRU block over 2 x 33 steps at once against 20 steps and then,
+    from the carried state, 13 more and one at a time, with the kernel."""
+    from repro_torch.models import rglru
+
+    cfg, params = _serving_model("recurrentgemma-2b")
+    p = params["layers"][0]["rglru"]
+    x = torch.randn(2, 33, cfg.d_model, device="cuda", generator=gen)
+    whole, st_whole = rglru.rglru_block(p, cfg, x)
+    first, st = rglru.rglru_block(p, cfg, x[:, :20])
+    outs = [first]
+    for t in range(20, 33):
+        o, st = rglru.rglru_block(p, cfg, x[:, t:t + 1], st)
+        outs.append(o)
+    assert _rel(torch.cat(outs, 1), whole) <= TOL["fp32"]
+    assert _rel(st.h, st_whole.h) <= TOL["fp32"]

@@ -87,7 +87,7 @@ def test_configs_match_the_reference_and_refuse_later_slices():
     full = configs.get_config("recurrentgemma-2b")
     assert full.layer_kinds().count("rglru") == 18
     assert full.layer_kinds().count("swa") == 8
-    with pytest.raises(NotImplementedError, match="LM-substrate slice"):
+    with pytest.raises(NotImplementedError, match="MoE slice"):
         configs.get_config("qwen3-moe-30b-a3b")
     with pytest.raises(KeyError):
         configs.get_config("no-such-model")
@@ -238,8 +238,13 @@ def test_rglru_block_matches_reference():
     np.testing.assert_allclose(tst.h.numpy(), np.asarray(jst.h), rtol=1e-5,
                                atol=1e-5)
     np.testing.assert_array_equal(tst.conv.numpy(), np.asarray(jst.conv))
-    with pytest.raises(NotImplementedError, match="serving slice"):
-        tr.rglru_block(tp, tc, torch.tensor(x), state=tst)
+    # from the carried state, as the reference's block from its own
+    jo, jst = jr.rglru_block(jp, jc, jnp.asarray(x), jst)
+    to, tst = tr.rglru_block(tp, tc, torch.tensor(x), state=tst)
+    np.testing.assert_allclose(to.numpy(), np.asarray(jo), rtol=1e-5,
+                               atol=1e-5)
+    np.testing.assert_allclose(tst.h.numpy(), np.asarray(jst.h), rtol=1e-5,
+                               atol=1e-5)
 
 
 def test_attention_paths_match_reference():
@@ -280,10 +285,9 @@ def test_later_slices_raise():
         tt.block_init(gen, tc, "moe")
     params = tt.init_model(gen, tc)
     x = torch.zeros(1, 4, tc.d_model)
-    with pytest.raises(NotImplementedError, match="serving slice"):
-        tt.block_apply(tt.block_init(gen, tc, "mlstm"), tc, "mlstm", x,
-                       mode="decode")
-    with pytest.raises(NotImplementedError, match="serving slice"):
+    with pytest.raises(NotImplementedError, match="MoE slice"):
+        tt.block_apply({}, tc, "moe", x, mode="decode", entry={})
+    with pytest.raises(ValueError, match="cache entry"):
         tt.block_apply(params["layers"][0], tc, "swa", x, mode="decode")
     with pytest.raises(NotImplementedError, match="softcap"):
         tt.block_apply(params["layers"][0],
@@ -291,5 +295,6 @@ def test_later_slices_raise():
     with pytest.raises(NotImplementedError, match="prefix"):
         tt.encode(params, tc, torch.zeros(1, 4, dtype=torch.long),
                   prefix_embeds=x)
-    with pytest.raises(NotImplementedError, match="serving slice"):
-        tt.prefill(params, tc, None, 8)
+    with pytest.raises(NotImplementedError, match="encoder-decoder slice"):
+        tt.prefill(params, tc, torch.zeros(1, 4, dtype=torch.long), 8,
+                   prefix_embeds=x)

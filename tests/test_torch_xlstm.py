@@ -75,7 +75,7 @@ def test_blocks_match_reference(block, dtype):
     jdt, tdt = ((jnp.bfloat16, torch.bfloat16) if dtype == "bfloat16"
                 else (jnp.float32, torch.float32))
     want, _ = apply(jp, jc, jnp.asarray(x, jdt), None)
-    got = getattr(tx, f"{block}_block")(tp, tc, torch.tensor(x).to(tdt))
+    got, _ = getattr(tx, f"{block}_block")(tp, tc, torch.tensor(x).to(tdt))
     assert got.dtype == tdt and got.shape == want.shape
     if dtype == "float32":
         np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5,
@@ -85,12 +85,19 @@ def test_blocks_match_reference(block, dtype):
 
 
 def test_blocks_refuse_a_carried_state():
+    """A carried state must be the block's own state tuple: an object of
+    another type (here the other block's state) is refused."""
     _, tc = _cfgs()
     x = torch.zeros(1, 3, tc.d_model)
     gen = torch.Generator().manual_seed(0)
-    for block in ("mlstm", "slstm"):
+    _, m_state = tx.mlstm_block(tx.mlstm_init(gen, tc), tc, x,
+                                final_state=True)
+    _, s_state = tx.slstm_block(tx.slstm_init(gen, tc), tc, x)
+    for block, other in (("mlstm", s_state), ("slstm", m_state)):
         params = getattr(tx, f"{block}_init")(gen, tc)
-        with pytest.raises(NotImplementedError, match="serving slice"):
+        with pytest.raises(TypeError, match="State or None"):
+            getattr(tx, f"{block}_block")(params, tc, x, state=other)
+        with pytest.raises(TypeError, match="State or None"):
             getattr(tx, f"{block}_block")(params, tc, x, state=object())
 
 
