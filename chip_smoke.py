@@ -129,6 +129,27 @@ Phases (any failure raises and the script exits non-zero):
      prefill launched ``swa``, ``rglru`` and ``mlstm`` once per block of
      their kind and each decode step ``rglru`` once per RG-LRU block, and
      nothing else;
+  8c. the MoE kind, prefix embeddings and encoder-decoders (seeded fp32
+     weights): (a) granite-moe-3b-a800m at full width and depth (32
+     layers, bf16 compute) through phase 6's route, 2 ``gram_fused``
+     launches and nothing else, every MoE block's FFN against
+     ``moe_ffn_by_expert`` on the same input (``MOE_ORACLE_TOL``), one
+     encode's MoE share, the drop share at capacity factor 1.25 per layer
+     and the summed aux; (b) its serving path in fp32: 2 prompts of 1024
+     and 8 decode steps against the forward at a drop-free capacity
+     factor (``drop_free``), and the engine at 1.25, 8 requests of 64-1500
+     prompt tokens through 3 slots, each against its batch-1 ``generate``;
+     (c) qwen3-moe-30b-a3b at full width, 8 of 48 layers: a bf16 encode of
+     8 x 4096 at 1.25 with its blocks against the oracle, and 2 x 512 fp32
+     decode steps against the forward drop-free; (d) llava-next-34b at full
+     width, 4 of 60 layers: 2 rows of 2880 prefix embeddings and 64 tokens,
+     8 fp32 decode steps against the forward; (e) seamless-m4t-large-v2 at
+     full width and depth (12 + 12 layers): enc_embeds (2, 1024, 1024), 2 x
+     256 tokens, the prefilled ``ck``/``cv`` equal to the cross k and v of
+     the encoder memory, 8 fp32 decode steps against the forward, and one
+     ``pooled_features(..., enc_embeds=)`` into ``gram_fused``.  Depth is
+     cut where fp32 weights would not fit the card (qwen3-moe 122 GB,
+     llava 137 GB whole);
   9. the ``gram_tri`` and ``gram_dense`` cases of phase 3 at the main
      path's and the full shape, and the bf16 ragged ones, split by
      ``torch.profiler`` into device time per kernel, theirs and the
@@ -192,6 +213,10 @@ END_TO_END_TOL = {
     "recurrentgemma-2b": {"bf16_rel": TOL["bf16"],
                           "bf16_norm_rel": FEATURE_NORM_TOL, "fp32_rel": 1e-3},
     "xlstm-1.3b": {"bf16_rel": 9e-2, "bf16_norm_rel": 1e-1, "fp32_rel": 5e-2},
+    # phase 8c (a): no granite-moe block runs a kernel, so the "kernel"
+    # path and its plain version are the same code and must agree exactly
+    "granite-moe-3b-a800m": {"bf16_rel": 0.0, "bf16_norm_rel": 0.0,
+                             "fp32_rel": 0.0},
 }
 H_BYTES = {"fp32": 4, "bf16": 2, "int8": 1}
 REPEATS = 7
@@ -1813,14 +1838,17 @@ ENGINE_MAX_NEW = (4, 12, 7, 9, 5, 11, 6, 8)
 ENGINE_SLOTS = 3
 
 
-def last_logits(torch, params, cfg, seq, use_kernel: bool = True):
-    """The train-mode forward over ``seq`` (B, S), unembedding only the last
-    position: (B, vocab) fp32 (full logits at S = 2116 would be 4.3 GB)."""
+def last_logits(torch, params, cfg, seq, use_kernel: bool = True,
+                **frontend):
+    """The train-mode forward over ``seq`` (B, S) (after ``prefix_embeds``,
+    or over the memory of ``enc_embeds``, in ``frontend``), unembedding only
+    the last position: (B, vocab) fp32 (full logits at S = 2116 would be
+    4.3 GB)."""
     from repro_torch.models import transformer
 
     with torch.no_grad():
         x, _ = transformer.forward_features(params, cfg, seq,
-                                            use_kernel=use_kernel)
+                                            use_kernel=use_kernel, **frontend)
         return transformer.head_logits(params, cfg, x[:, -1])
 
 
@@ -1836,10 +1864,12 @@ def expected_launches(cfg, wrappers, prefills: int = 0, steps: int = 0):
     return want
 
 
-def serve_vs_forward(torch, params, cfg, wrappers, prompt, steps: int):
-    """Phase 8b (a) and (d): ``prefill`` (fp32 caches), then ``steps``
+def serve_vs_forward(torch, params, cfg, wrappers, prompt, steps: int,
+                     **frontend):
+    """Phases 8b (a), (d) and 8c: ``prefill`` (fp32 caches), then ``steps``
     greedy ``decode_step`` calls, each call's logits against the last
-    position of a train-mode forward over the whole sequence so far.  The
+    position of a train-mode forward over the whole sequence so far
+    (``frontend``: ``prefix_embeds`` or ``enc_embeds``, to both).  The
     launches of the prefill and of each decode step are read apart (the
     forward's own launches are not counted).  No limit is checked here:
     returns the record, with the prefill's cache entries under
@@ -1847,11 +1877,13 @@ def serve_vs_forward(torch, params, cfg, wrappers, prompt, steps: int):
     from repro_torch.models import transformer
 
     B, S = prompt.shape
+    P = frontend["prefix_embeds"].shape[1] if "prefix_embeds" in frontend \
+        else 0
     reset_all(wrappers)
     torch.cuda.synchronize()
     t = time.perf_counter()
-    lg, cache = transformer.prefill(params, cfg, prompt, S + steps,
-                                    cache_dtype=torch.float32)
+    lg, cache = transformer.prefill(params, cfg, prompt, P + S + steps,
+                                    cache_dtype=torch.float32, **frontend)
     torch.cuda.synchronize()
     prefill_s = time.perf_counter() - t
     prefill_launches = all_launches(wrappers)
@@ -1859,7 +1891,7 @@ def serve_vs_forward(torch, params, cfg, wrappers, prompt, steps: int):
     # returns new recurrent states)
     prefill_layers = list(cache["layers"])
     errs = [rel_err(torch, lg[:, -1], last_logits(torch, params, cfg,
-                                                  prompt))[1]]
+                                                  prompt, **frontend))[1]]
     seq, step_launches, step_ms = prompt, [], []
     for _ in range(steps):
         nt = lg[:, -1].argmax(-1, keepdim=True)
@@ -1872,9 +1904,9 @@ def serve_vs_forward(torch, params, cfg, wrappers, prompt, steps: int):
         step_ms.append((time.perf_counter() - t) * 1e3)
         step_launches.append(all_launches(wrappers))
         errs.append(rel_err(torch, lg[:, -1], last_logits(
-            torch, params, cfg, seq))[1])
+            torch, params, cfg, seq, **frontend))[1])
     finite = bool(torch.isfinite(lg).all())
-    return {"B": B, "S": S, "steps": steps, "prefill_s": prefill_s,
+    return {"B": B, "P": P, "S": S, "steps": steps, "prefill_s": prefill_s,
             "decode_ms_median": statistics.median(step_ms),
             "logits_vs_forward_rel": errs, "max_rel": max(errs),
             "finite": finite, "prefill_launches": prefill_launches,
@@ -2031,20 +2063,22 @@ def top2_margin(torch, row) -> float:
     return float(top[0] - top[1])
 
 
-def serve_engine(torch, params, cfg, wrappers, gen) -> dict:
-    """Phase 8b (c): the continuous-batching engine, fp32 caches, 8 ragged
-    requests through ENGINE_SLOTS slots, each request against its own
-    batch-1 ``generate``: its logits within SERVE_FP32_TOL of max |logit|
-    up to the first token where the two runs part, and its tokens equal
-    wherever the sequential run's top-2 margin exceeds twice that limit
-    (past a parting, the two runs decode different tokens)."""
+def serve_engine(torch, params, cfg, wrappers, gen, lengths=ENGINE_PROMPTS,
+                 max_new=ENGINE_MAX_NEW) -> dict:
+    """Phases 8b (c) and 8c (b): the continuous-batching engine, fp32
+    caches, ragged requests (prompts of ``lengths``, ``max_new`` tokens
+    each) through ENGINE_SLOTS slots, each request against its own batch-1
+    ``generate``: its logits within SERVE_FP32_TOL of max |logit| up to the
+    first token where the two runs part, and its tokens equal wherever the
+    sequential run's top-2 margin exceeds twice that limit (past a parting,
+    the two runs decode different tokens)."""
     from repro_torch.serving.scheduler import ContinuousBatchingEngine, Request
 
-    max_len = max(ENGINE_PROMPTS) + max(ENGINE_MAX_NEW)
+    max_len = max(lengths) + max(max_new)
     prompts = [torch.randint(0, cfg.vocab_size, (n,), device="cuda",
-                             generator=gen) for n in ENGINE_PROMPTS]
+                             generator=gen) for n in lengths]
     reqs = [Request(rid=i, prompt=p, max_new=k, logits=[])
-            for i, (p, k) in enumerate(zip(prompts, ENGINE_MAX_NEW))]
+            for i, (p, k) in enumerate(zip(prompts, max_new))]
     eng = ContinuousBatchingEngine(params, cfg, ENGINE_SLOTS, max_len,
                                    cache_dtype=torch.float32)
     for r in reqs:
@@ -2080,6 +2114,30 @@ def serve_engine(torch, params, cfg, wrappers, gen) -> dict:
             "stats": dataclasses.asdict(stats), "launches": launches,
             "per_request": per_req,
             "max_rel": max(q["max_rel"] for q in per_req)}
+
+
+def check_engine(cfg, wrappers, rec, max_new, label) -> None:
+    """A ``serve_engine`` record: every request completed with its tokens,
+    the launches a prefill and a step must make, and each request against
+    its batch-1 ``generate`` (``serve_engine``'s rule)."""
+    st = rec["stats"]
+    check(st["completed"] == len(max_new)
+          and st["decoded_tokens"] == sum(max_new),
+          f"{label}: engine stats {st}")
+    want = expected_launches(cfg, wrappers, prefills=st["prefills"],
+                             steps=st["steps"])
+    check(rec["launches"] == want, f"{label}: the engine launched "
+          f"{rec['launches']}, expected {want}")
+    for q in rec["per_request"]:
+        check(q["max_rel"] <= SERVE_FP32_TOL, f"{label}: request "
+              f"{q['rid']}'s logits off its batch-1 generate by "
+              f"{q['max_rel']:.3g}, above {SERVE_FP32_TOL}")
+        if q["first_parting"] is not None:
+            check(q["rel_margin_at_parting"] <= 2 * SERVE_FP32_TOL,
+                  f"{label}: request {q['rid']} parted from its batch-1 "
+                  f"generate at token {q['first_parting']} with a top-2 "
+                  f"margin of {q['rel_margin_at_parting']:.3g} of max "
+                  f"|logit|")
 
 
 def serve_xlstm_states(torch, params, cfg, layers, prompt) -> dict:
@@ -2198,24 +2256,8 @@ def serving_phase(torch, wrappers) -> dict:
     rec = serve_engine(torch, params, rg32, wrappers, gen)
     rec["seconds_with_checks"] = time.perf_counter() - t
     emit({"phase": "serving_c_engine", **rec, "tol": SERVE_FP32_TOL})
+    check_engine(rg32, wrappers, rec, ENGINE_MAX_NEW, "serving (c)")
     st = rec["stats"]
-    check(st["completed"] == len(ENGINE_PROMPTS)
-          and st["decoded_tokens"] == sum(ENGINE_MAX_NEW),
-          f"serving (c): engine stats {st}")
-    want = expected_launches(rg32, wrappers, prefills=st["prefills"],
-                             steps=st["steps"])
-    check(rec["launches"] == want, f"serving (c): the engine launched "
-          f"{rec['launches']}, expected {want}")
-    for q in rec["per_request"]:
-        check(q["max_rel"] <= SERVE_FP32_TOL, f"serving (c): request "
-              f"{q['rid']}'s logits off its batch-1 generate by "
-              f"{q['max_rel']:.3g}, above {SERVE_FP32_TOL}")
-        if q["first_parting"] is not None:
-            check(q["rel_margin_at_parting"] <= 2 * SERVE_FP32_TOL,
-                  f"serving (c): request {q['rid']} parted from its batch-1 "
-                  f"generate at token {q['first_parting']} with a top-2 "
-                  f"margin of {q['rel_margin_at_parting']:.3g} of max "
-                  f"|logit|")
     out["c_engine"] = {k: rec[k] for k in ("max_rel", "seconds")}
     out["c_engine"]["steps"] = st["steps"]
     out["launches"]["c"] = rec["launches"]
@@ -2265,6 +2307,356 @@ def serving_phase(torch, wrappers) -> dict:
           f"serve example launched {example}")
     out["e_example"] = {"seconds": time.perf_counter() - t, **ex,
                         "launches": example}
+    out["seconds"] = time.perf_counter() - t_phase
+    return out
+
+
+# phase 8c: the MoE kind, prefix embeddings and encoder-decoders.  No block
+# of these models runs a kernel, so a kernel-against-plain check compares
+# identical code (phase (a)'s END_TO_END_TOL entry is 0).  MOE_ORACLE_TOL
+# bounds each MoE block's FFN (moe_ffn: scatter, batched expert products,
+# gather) against moe_ffn_by_expert (a per-expert loop on the same routing)
+# on the same input along the route, as a share of max |by_expert| and in
+# norm.  On an H100 the sound bf16 readings are exactly 0 (granite-moe's 32
+# blocks, qwen3-moe's 8: cuBLAS sums each product in the same order at
+# both shapes) and fp32 reads 1.7e-6 of max, 1.2e-6 in norm; the bf16 norm
+# limit allows a product off by about two bf16 ulps (2^-8) in every
+# element, and tools/moe_mutant_check.py's two broken copies read 0.81 and
+# 0.87 in norm (PERF.md section 6).
+MOE_ORACLE_TOL = {"bf16": {"rel": TOL["bf16"], "norm_rel": 1e-2},
+                  "fp32": {"rel": TOL["fp32"], "norm_rel": 1e-5}}
+# (b): the engine's requests at the published capacity factor
+MOE_ENGINE_PROMPTS = (64, 1500, 700, 1200, 128, 1000, 512, 333)
+MOE_ENGINE_MAX_NEW = (4, 12, 7, 9, 5, 11, 6, 8)
+MOE_LAUNCH_PARTS = ("a", "b", "c", "d", "e")
+
+
+def drop_free(cfg):
+    """``cfg`` at capacity factor 2 E / K: C = int(2 S) slots an expert for
+    S tokens, twice what the K S assignments of a row can fill in the
+    worst case, with a margin against the int truncation (E itself would
+    also be drop-free, but C = S K makes qwen3-moe's fp32 buffers ~20 GB)."""
+    return dataclasses.replace(
+        cfg, capacity_factor=2 * cfg.n_experts / cfg.n_experts_active)
+
+
+def moe_block_errors(torch, params, cfg, tokens) -> dict:
+    """Every MoE block's FFN against ``moe_ffn_by_expert`` on the same input,
+    layer by layer along the main path (no error carries from one layer to
+    the next): the largest max-based and norm-relative errors, the share of
+    (token, k) assignments dropped at ``cfg.capacity_factor`` in each
+    layer, and the blocks' summed aux (forward's aux on these tokens)."""
+    from repro_torch.models import moe, transformer
+
+    worst = {"rel": 0.0, "norm_rel": 0.0, "blocks": 0}
+    drops, aux = [], 0.0
+    with torch.no_grad():
+        x = transformer._embed_tokens(params, cfg, tokens)
+        for layer, kind in zip(params["layers"], cfg.layer_kinds()):
+            if kind != "moe":
+                x, _, _ = transformer.block_apply(layer, cfg, kind, x)
+                continue
+            h = transformer._norm(cfg, layer["ln1"], x)
+            x = x + transformer.mixer(layer, cfg, kind, h)[0]
+            h = transformer._norm(cfg, layer["ln2"], x)
+            out, a = moe.moe_ffn(layer["moe"], cfg, h)
+            want = moe.moe_ffn_by_expert(layer["moe"], cfg, h)[0].float()
+            worst["rel"] = max(worst["rel"],
+                               rel_err(torch, out.float(), want)[1])
+            worst["norm_rel"] = max(worst["norm_rel"],
+                                    norm_rel(torch, out.float(), want))
+            worst["blocks"] += 1
+            keep = moe._route(layer["moe"], cfg, h)[2]
+            drops.append(1.0 - float(keep.float().mean()))
+            aux += float(a)
+            x = x + out
+            del h, want, keep
+    worst["drop_share_max"] = max(drops)
+    worst["drop_share_mean"] = statistics.mean(drops)
+    worst["drop_share_by_layer"] = drops
+    worst["aux"] = aux
+    return worst
+
+
+def check_moe_blocks(rec, dtype, label) -> None:
+    limit = MOE_ORACLE_TOL[dtype]
+    check(rec["blocks"] > 0 and rec["rel"] <= limit["rel"]
+          and rec["norm_rel"] <= limit["norm_rel"],
+          f"{label} {dtype}: a MoE block off moe_ffn_by_expert on the same "
+          f"input by {rec['rel']:.3g} of max, {rec['norm_rel']:.3g} in norm "
+          f"({rec['blocks']} blocks), above {limit}")
+
+
+def moe_encode_split(torch, params, cfg, tokens) -> dict:
+    """One encode of ``tokens`` and the share of it inside ``moe_ffn`` (CUDA
+    events around each call, from its first launch to its last)."""
+    from repro_torch.models import transformer
+
+    call, events = transformer.moe_ffn, []
+
+    def timed(*args):
+        start, stop = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        out = call(*args)
+        stop.record()
+        events.append((start, stop))
+        return out
+
+    transformer.moe_ffn = timed
+    try:
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        transformer.encode(params, cfg, tokens)
+        torch.cuda.synchronize()
+        encode_s = time.perf_counter() - t
+    finally:
+        transformer.moe_ffn = call
+    moe_s = sum(a.elapsed_time(b) for a, b in events) / 1e3
+    return {"encode_s": encode_s, "moe_ffn_s": moe_s,
+            "moe_share": moe_s / encode_s, "moe_calls": len(events)}
+
+
+def check_decode(rec, label) -> None:
+    """A ``serve_vs_forward`` record of a model whose blocks run no kernel:
+    finite, no launch in the prefill or a step, decode within
+    SERVE_FP32_TOL of the forward."""
+    check(rec["finite"], f"{label}: non-finite logits")
+    for part, got in (("prefill", rec["prefill_launches"]),
+                      *(("decode step", s) for s in rec["step_launches"])):
+        check(not any(got.values()), f"{label} {part} launched {got}, "
+              f"expected no kernel")
+    check(rec["max_rel"] <= SERVE_FP32_TOL, f"{label}: decode logits off the "
+          f"forward by {rec['max_rel']:.3g} of max |logit|, above "
+          f"{SERVE_FP32_TOL}")
+
+
+def serve_record(rec) -> dict:
+    return {k: rec[k] for k in ("B", "P", "S", "steps", "prefill_s",
+                                "decode_ms_median", "logits_vs_forward_rel",
+                                "max_rel")}
+
+
+def moe_encdec_phase(torch, wrappers) -> dict:
+    """Phase 8c: (a) granite-moe-3b-a800m at full width and depth through the
+    backbone route (``backbone_route``: 2 ``gram_fused`` launches and no
+    other), every MoE block against ``moe_ffn_by_expert`` on agent 0's
+    first batch (bf16) and one sequence (fp32), one encode's MoE share,
+    the drop share at capacity factor 1.25 and the summed aux; (b) granite
+    serving in fp32 at full depth: decode against the forward drop-free,
+    and the engine at 1.25 against batch-1 ``generate``; (c) qwen3-moe-
+    30b-a3b at full width, 8 of 48 layers: a bf16 encode of 8 x 4096 at
+    1.25 with its blocks against the oracle, and fp32 decode against the
+    forward drop-free; (d) llava-next-34b at full width, 4 of 60 layers:
+    2880 prefix embeddings and 64 tokens, fp32 decode against the forward;
+    (e) seamless-m4t-large-v2 at full width and depth: the prefilled
+    ``ck``/``cv`` against the cross k and v of the encoder memory
+    (exact), fp32 decode against the forward, and one
+    ``pooled_features(..., enc_embeds=)`` into ``gram_fused``.  Each
+    part's launches are read apart: ``gram_fused`` 2 in (a) and 1 in (e),
+    nothing else anywhere.  Depth cuts: the card's 80 GB at fp32 weights
+    (qwen3-moe 122 GB whole, llava 137 GB)."""
+    from repro_torch import backbone, configs
+    from repro_torch.configs.llava_next_34b import N_PATCHES
+    from repro_torch.core import elm
+    from repro_torch.core.heads import pooled_features
+    from repro_torch.data import pipeline
+    from repro_torch.models import attention, transformer
+
+    t_phase = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(25)
+    out = {"launches": {}}
+
+    def seed(n):
+        return torch.Generator(device="cuda").manual_seed(n)
+
+    # (a) the granite-moe route at full width and depth
+    t = time.perf_counter()
+    gm = configs.get_config("granite-moe-3b-a800m")
+    route, params = backbone_route(torch, gm, wrappers, n_batches=2)
+    tokens = next(backbone.token_batches(seed(1), 1, n=8, seq=4096,
+                                         m=4))[0][0]
+    split = moe_encode_split(torch, params, gm, tokens)
+    check(split["moe_calls"] == gm.n_layers, f"8c (a): one encode called "
+          f"moe_ffn {split['moe_calls']} times")
+    blocks = {"bf16": moe_block_errors(torch, params, gm, tokens),
+              "fp32": moe_block_errors(
+                  torch, params, dataclasses.replace(gm, dtype="float32"),
+                  tokens[:1])}
+    out["launches"]["a"] = all_launches(wrappers)
+    rec = {**route, "one_encode": split, "moe_blocks_vs_by_expert": blocks,
+           "oracle_tol": MOE_ORACLE_TOL, "seconds": time.perf_counter() - t}
+    emit({"phase": "moe_a_granite_route", **rec})
+    for dtype, r in blocks.items():
+        check_moe_blocks(r, dtype, "8c (a) granite-moe")
+    want = dict.fromkeys(out["launches"]["a"], 0)
+    want["gram_fused"] = 2
+    check(out["launches"]["a"] == want, f"8c (a): launched "
+          f"{out['launches']['a']}, expected {want}")
+    out["a_route"] = {k: rec[k] for k in ("times_s", "params", "accuracy",
+                                          "peak_mem_gb", "seconds")}
+    out["a_route"].update(
+        encode_s=split["encode_s"], moe_share=split["moe_share"],
+        drop_share_max=blocks["bf16"]["drop_share_max"],
+        drop_share_mean=blocks["bf16"]["drop_share_mean"],
+        aux=blocks["bf16"]["aux"],
+        oracle={d: {k: r[k] for k in ("rel", "norm_rel")}
+                for d, r in blocks.items()})
+    del tokens
+
+    # (b) granite serving, fp32, full depth
+    t = time.perf_counter()
+    gm32 = dataclasses.replace(gm, dtype="float32")
+    prompt = torch.randint(0, gm.vocab_size, (2, 1024), device="cuda",
+                           generator=gen)
+    dec = serve_vs_forward(torch, params, drop_free(gm32), wrappers, prompt, 8)
+    del dec["prefill_layers"]
+    eng = serve_engine(torch, params, gm32, wrappers, gen,
+                       MOE_ENGINE_PROMPTS, MOE_ENGINE_MAX_NEW)
+    out["launches"]["b"] = {k: dec["prefill_launches"][k]
+                            + sum(s[k] for s in dec["step_launches"])
+                            + eng["launches"][k] for k in eng["launches"]}
+    rec = {"decode": serve_record(dec),
+           "capacity_factor": drop_free(gm32).capacity_factor,
+           "engine": {k: eng[k] for k in ("seconds", "stats", "per_request",
+                                          "max_rel")},
+           "engine_capacity_factor": gm32.capacity_factor,
+           "seconds": time.perf_counter() - t, "tol": SERVE_FP32_TOL}
+    emit({"phase": "moe_b_granite_serving", **rec})
+    check_decode(dec, "8c (b) granite-moe")
+    check_engine(gm32, wrappers, eng, MOE_ENGINE_MAX_NEW, "8c (b) engine")
+    out["b_serving"] = {"prefill_s": dec["prefill_s"],
+                        "decode_ms_median": dec["decode_ms_median"],
+                        "max_rel": dec["max_rel"],
+                        "engine_max_rel": eng["max_rel"],
+                        "seconds": rec["seconds"]}
+    del params
+    torch.cuda.empty_cache()
+
+    # (c) qwen3-moe-30b-a3b at full width, 8 of 48 layers
+    t = time.perf_counter()
+    qm = dataclasses.replace(configs.get_config("qwen3-moe-30b-a3b"),
+                             n_layers=8)
+    params = transformer.init_model(seed(0), qm)
+    tokens = torch.randint(0, qm.vocab_size, (8, 4096), device="cuda",
+                           generator=gen)
+    torch.cuda.reset_peak_memory_stats()
+    split = moe_encode_split(torch, params, qm, tokens)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    blocks = moe_block_errors(torch, params, qm, tokens)
+    del tokens
+    q32 = drop_free(dataclasses.replace(qm, dtype="float32"))
+    prompt = torch.randint(0, qm.vocab_size, (2, 512), device="cuda",
+                           generator=gen)
+    dec = serve_vs_forward(torch, params, q32, wrappers, prompt, 8)
+    del dec["prefill_layers"]
+    out["launches"]["c"] = {k: dec["prefill_launches"][k]
+                            + sum(s[k] for s in dec["step_launches"])
+                            for k in dec["prefill_launches"]}
+    rec = {"layers": qm.n_layers, "params": transformer.param_count(params),
+           "one_encode": split, "peak_mem_gb": peak,
+           "moe_blocks_vs_by_expert": blocks, "decode": serve_record(dec),
+           "decode_capacity_factor": q32.capacity_factor,
+           "seconds": time.perf_counter() - t}
+    emit({"phase": "moe_c_qwen3_moe", **rec})
+    check_moe_blocks(blocks, "bf16", "8c (c) qwen3-moe")
+    check_decode(dec, "8c (c) qwen3-moe")
+    out["c_qwen3_moe"] = {"encode_s": split["encode_s"],
+                          "moe_share": split["moe_share"],
+                          "peak_mem_gb": peak,
+                          "drop_share_max": blocks["drop_share_max"],
+                          "oracle": {k: blocks[k] for k in ("rel",
+                                                            "norm_rel")},
+                          "max_rel": dec["max_rel"],
+                          "seconds": rec["seconds"]}
+    del params
+    torch.cuda.empty_cache()
+
+    # (d) llava-next-34b at full width, 4 of 60 layers, 2880 prefix
+    # embeddings at the token embeddings' scale
+    t = time.perf_counter()
+    lv = dataclasses.replace(configs.get_config("llava-next-34b"),
+                             n_layers=4, dtype="float32")
+    params = transformer.init_model(seed(0), lv)
+    prefix = torch.randn(2, N_PATCHES, lv.d_model, device="cuda",
+                         generator=gen) * lv.d_model ** -0.5
+    prompt = torch.randint(0, lv.vocab_size, (2, 64), device="cuda",
+                           generator=gen)
+    dec = serve_vs_forward(torch, params, lv, wrappers, prompt, 8,
+                           prefix_embeds=prefix)
+    out["launches"]["d"] = {k: dec["prefill_launches"][k]
+                            + sum(s[k] for s in dec["step_launches"])
+                            for k in dec["prefill_launches"]}
+    del dec["prefill_layers"]
+    rec = {"layers": lv.n_layers, "params": transformer.param_count(params),
+           "decode": serve_record(dec), "seconds": time.perf_counter() - t}
+    emit({"phase": "moe_d_llava", **rec})
+    check_decode(dec, "8c (d) llava")
+    out["d_llava"] = {"prefill_s": dec["prefill_s"],
+                      "decode_ms_median": dec["decode_ms_median"],
+                      "max_rel": dec["max_rel"], "seconds": rec["seconds"]}
+    del params, prefix
+    torch.cuda.empty_cache()
+
+    # (e) seamless-m4t-large-v2 at full width and depth
+    t = time.perf_counter()
+    sm = dataclasses.replace(configs.get_config("seamless-m4t-large-v2"),
+                             dtype="float32")
+    params = transformer.init_model(seed(0), sm)
+    enc = torch.randn(2, sm.enc_seq, sm.d_model, device="cuda",
+                      generator=gen) * sm.d_model ** -0.5
+    prompt = torch.randint(0, sm.vocab_size, (2, 256), device="cuda",
+                           generator=gen)
+    dec = serve_vs_forward(torch, params, sm, wrappers, prompt, 8,
+                           enc_embeds=enc)
+    launches = {k: dec["prefill_launches"][k]
+                + sum(s[k] for s in dec["step_launches"])
+                for k in dec["prefill_launches"]}
+    with torch.no_grad():
+        memory = transformer.run_encoder(params, sm, enc)
+        cross_exact = all(
+            torch.equal(entry[c], kv.to(entry[c].dtype))
+            for layer, entry in zip(params["layers"], dec["prefill_layers"])
+            for c, kv in zip(("ck", "cv"), attention.cross_kv(
+                layer["cross"], sm, memory)))
+    del dec["prefill_layers"], memory
+    # the route's head: pooled features of 4 agents into fused statistics
+    reset_all(wrappers)
+    fmap = elm.make_feature_map(7, sm.d_model, 2048, dist="normal",
+                                device="cuda")
+    agent_tokens = torch.randint(0, sm.vocab_size, (4, 2, 256), device="cuda",
+                                 generator=gen)
+    labels = torch.eye(3, device="cuda")[torch.randint(
+        0, 3, (4, 2), device="cuda", generator=gen)]
+    feats = pooled_features(params, sm, agent_tokens, enc_embeds=enc)
+    stats = pipeline.stream_sufficient_stats(
+        [(feats, labels)], producer="fused", feature_map=fmap)
+    fused = all_launches(wrappers)
+    plain = pipeline.stream_sufficient_stats(
+        [(feats, labels)], producer="fused", feature_map=fmap,
+        use_kernel=False)
+    stats_err = {leaf: rel_err(torch, getattr(stats, leaf),
+                               getattr(plain, leaf))[1] for leaf in ("G", "R")}
+    out["launches"]["e"] = {k: launches[k] + fused[k] for k in launches}
+    rec = {"layers": [sm.n_enc_layers, sm.n_layers],
+           "params": transformer.param_count(params),
+           "decode": serve_record(dec), "cross_kv_exact": cross_exact,
+           "pooled_stats_vs_plain": stats_err,
+           "seconds": time.perf_counter() - t}
+    emit({"phase": "moe_e_seamless", **rec})
+    check_decode(dec, "8c (e) seamless")
+    check(cross_exact, "8c (e): a prefilled ck/cv differs from the cross k "
+          "and v of the encoder memory")
+    check(fused["gram_fused"] == 1 and sum(fused.values()) == 1,
+          f"8c (e): the pooled features' statistics launched {fused}")
+    check(all(bool(torch.isfinite(x).all()) for x in stats)
+          and max(stats_err.values()) <= TOL["fp32"],
+          f"8c (e): fused statistics off their plain version by {stats_err}")
+    out["e_seamless"] = {"prefill_s": dec["prefill_s"],
+                         "decode_ms_median": dec["decode_ms_median"],
+                         "max_rel": dec["max_rel"],
+                         "seconds": rec["seconds"]}
+    del params, enc, feats
+    torch.cuda.empty_cache()
     out["seconds"] = time.perf_counter() - t_phase
     return out
 
@@ -2771,6 +3163,11 @@ def main() -> int:
     emit({"phase": "serving", **serving})
     torch.cuda.empty_cache()
 
+    # 8c. the MoE kind, prefix embeddings and encoder-decoders ----------------
+    moe_encdec = moe_encdec_phase(torch, wrappers)
+    emit({"phase": "moe_encdec", **moe_encdec})
+    torch.cuda.empty_cache()
+
     sources = {"gram_tri": "src/repro/kernels/gram/kernel.py:224",
                "gram_fused": "src/repro/kernels/gram/kernel.py:464",
                "gram_tri_q": "src/repro/kernels/gram/kernel.py:334",
@@ -2809,6 +3206,8 @@ def main() -> int:
             **({"body": top["body"]} if "body" in top else {}),
             **({"serving_launches": serving_launches[name]}
                if name in serving_launches else {}),
+            "moe_encdec_launches": {part: moe_encdec["launches"][part][name]
+                                    for part in MOE_LAUNCH_PARTS},
             "cases": cs,
         })
     emit({"phase": "total", "seconds": time.perf_counter() - t_start})

@@ -2,7 +2,8 @@
 statistics) into the port's objects on a given device.
 
 ``model_from_numpy`` takes the reference's ``init_model`` pytree (arrays
-that numpy can read) and lays it out as the port's flat layer list;
+that numpy can read) and lays it out as the port's flat layer list (and
+an encoder-decoder's encoder as a list of its blocks);
 ``cache_from_numpy`` does the same for a decode cache (``prefill``'s), so
 that the port can decode on from a cache that the reference filled.
 
@@ -74,11 +75,11 @@ def model_from_numpy(params, cfg, device="cuda"):
     Every leaf of ``params["cycles"]`` carries a leading n_cycles axis
     (``jax.vmap(cycle_init)``): cycle c, block j becomes layer
     c * len(cfg.block_pattern) + j, and ``params["rem"]`` follows the
-    cycles.  Dense weights keep their (d_in, d_out) orientation; every
-    leaf becomes fp32."""
-    if params.get("encoder") is not None:
-        raise NotImplementedError(
-            "encoder-decoder models come with the encoder-decoder slice")
+    cycles.  An encoder-decoder's ``params["encoder"]``, stacked on a
+    leading n_enc_layers axis, becomes the list of its blocks, beside
+    ``enc_norm``.  MoE blocks' (E, d, F) expert weights keep their layout.
+    Dense weights keep their (d_in, d_out) orientation; every leaf becomes
+    fp32."""
     n_cycles = cfg.n_layers // len(cfg.block_pattern)
     layers = []
     for c in range(n_cycles):
@@ -93,6 +94,10 @@ def model_from_numpy(params, cfg, device="cuda"):
            "layers": layers}
     if "lm_head" in params:
         out["lm_head"] = _tree_tensors(params["lm_head"], device)
+    if params.get("encoder") is not None:
+        out["encoder"] = [_tree_tensors(params["encoder"], device, i)
+                          for i in range(cfg.n_enc_layers)]
+        out["enc_norm"] = _tree_tensors(params["enc_norm"], device)
     return out
 
 
@@ -116,13 +121,12 @@ def _entry_from_numpy(entry, kind: str, device, index=None):
         return _array_tensor(x if index is None else np.asarray(x)[index],
                              device)
 
-    if kind in ("attn", "swa"):
-        if set(entry) != {"k", "v"}:
-            raise NotImplementedError(
-                "cross-attention caches come with the encoder-decoder slice")
+    if kind in ("attn", "swa", "moe"):
+        if not {"k", "v"} <= set(entry) <= {"k", "v", "ck", "cv"}:
+            raise ValueError(f"an attention entry holds k, v and an "
+                             f"encoder-decoder's ck, cv; got {sorted(entry)}")
         out = {}
-        for name in ("k", "v"):
-            line = entry[name]
+        for name, line in entry.items():
             # the reference's QuantizedKV is a (q, scale) named tuple
             out[name] = (QuantizedKV(*(leaf(t) for t in line))
                          if isinstance(line, tuple) else leaf(line))
@@ -130,8 +134,7 @@ def _entry_from_numpy(entry, kind: str, device, index=None):
     state = {"rglru": RGLRUState, "mlstm": MLSTMState,
              "slstm": SLSTMState}.get(kind)
     if state is None:
-        raise NotImplementedError(f"cache entries of kind {kind!r} are not "
-                                  f"ported yet")
+        raise ValueError(f"unknown block kind {kind}")
     return state(*(leaf(t) for t in entry))
 
 

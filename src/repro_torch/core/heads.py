@@ -29,17 +29,21 @@ from repro_torch.models.transformer import encode
 @torch.no_grad()
 def pooled_features(backbone_params, cfg: ModelConfig, tokens: torch.Tensor,
                     mask: Optional[torch.Tensor] = None, *,
-                    use_kernel: bool = True) -> torch.Tensor:
+                    use_kernel: bool = True,
+                    **frontend_kwargs) -> torch.Tensor:
     """Frozen-backbone features, mean-pooled over valid tokens.
 
-    tokens: (m, B, S) per-agent batches; mask: (m, B, S) valid-token mask
-    or None.  Encodes one agent at a time (the reference vmaps over
-    agents).  ``use_kernel=False`` runs the backbone's kernels' plain
-    versions on any device.  Returns (m, B, d_model) fp32."""
+    tokens: (m, B, S) per-agent batches; mask: (m, B, S') valid-token mask
+    or None, S' the length of ``encode``'s output (P + S with prefix
+    embeddings).  ``frontend_kwargs`` (``prefix_embeds`` (B, P, d),
+    ``enc_embeds`` (B, F, d)) go to ``encode`` for every agent, as the
+    reference passes them.  Encodes one agent at a time (the reference
+    vmaps over agents).  ``use_kernel=False`` runs the backbone's kernels'
+    plain versions on any device.  Returns (m, B, d_model) fp32."""
     feats = []
     for a in range(tokens.shape[0]):
-        h = encode(backbone_params, cfg, tokens[a],
-                   use_kernel=use_kernel).float()
+        h = encode(backbone_params, cfg, tokens[a], use_kernel=use_kernel,
+                   **frontend_kwargs).float()
         if mask is None:
             feats.append(h.mean(dim=1))
             continue

@@ -1,7 +1,8 @@
-"""Self-attention: GQA/MQA projections with qk-norm and RoPE, the
+"""Attention: GQA/MQA projections with qk-norm and RoPE, the
 sliding-window kernel for windowed causal blocks, a plain blocked
-online-softmax ``flash_attention`` for everything else, and single-token
-``decode_attention`` against KV caches.
+online-softmax ``flash_attention`` for everything else (an encoder's
+bidirectional self-attention and a decoder's cross-attention over encoder
+memory among it), and single-token ``decode_attention`` against KV caches.
 
 Every ``"swa"`` block of a full-sequence pass (train mode or prefill,
 positions ``arange(S)``) runs ``kernels.swa.ops.swa_attention``: on the card
@@ -9,8 +10,7 @@ the CUDA ``swa`` kernel (the reference's models call their own jnp path
 instead, and its Pallas kernel only from tests).  Global, padded or
 soft-capped attention takes ``flash_attention``, and a decode step
 ``decode_attention``: plain tensor ops as the reference computes them in
-jnp, outside any Pallas kernel.  Cross-attention comes with the
-encoder-decoder slice.
+jnp, outside any Pallas kernel.
 """
 
 from __future__ import annotations
@@ -34,7 +34,9 @@ from repro_torch.models.layers import (
 NEG_INF = -1e30
 
 
-def attention_init(gen: torch.Generator, cfg: ModelConfig):
+def attention_init(gen: torch.Generator, cfg: ModelConfig,
+                   cross: bool = False):
+    """Cross-attention (``cross=True``) has no qk-norm."""
     d, hd = cfg.d_model, cfg.head_dim
     p = {
         "wq": dense_init(gen, d, cfg.n_heads * hd),
@@ -42,7 +44,7 @@ def attention_init(gen: torch.Generator, cfg: ModelConfig):
         "wv": dense_init(gen, d, cfg.n_kv_heads * hd),
         "wo": dense_init(gen, cfg.n_heads * hd, d),
     }
-    if cfg.qk_norm:
+    if cfg.qk_norm and not cross:
         p["q_norm"] = rmsnorm_init(hd, gen.device)
         p["k_norm"] = rmsnorm_init(hd, gen.device)
     return p
@@ -53,18 +55,22 @@ def _split_heads(x: torch.Tensor, n_heads: int, head_dim: int) -> torch.Tensor:
     return x.reshape(b, s, n_heads, head_dim)
 
 
-def _qkv(params, cfg: ModelConfig, x, positions, *, rope: bool = True):
-    """Project to (q, k, v), each (B, S, heads, D), with optional qk-norm
-    and RoPE."""
+def _qkv(params, cfg: ModelConfig, x, positions, *, rope: bool = True,
+         x_kv=None, positions_kv=None):
+    """Project x to q and ``x_kv`` (default x) to k and v, each (B, S,
+    heads, D), with optional qk-norm and RoPE (k at ``positions_kv``,
+    default ``positions``)."""
+    x_kv = x if x_kv is None else x_kv
+    positions_kv = positions if positions_kv is None else positions_kv
     q = _split_heads(dense(params["wq"], x), cfg.n_heads, cfg.head_dim)
-    k = _split_heads(dense(params["wk"], x), cfg.n_kv_heads, cfg.head_dim)
-    v = _split_heads(dense(params["wv"], x), cfg.n_kv_heads, cfg.head_dim)
+    k = _split_heads(dense(params["wk"], x_kv), cfg.n_kv_heads, cfg.head_dim)
+    v = _split_heads(dense(params["wv"], x_kv), cfg.n_kv_heads, cfg.head_dim)
     if "q_norm" in params:
         q = rmsnorm(params["q_norm"], q, cfg.norm_eps)
         k = rmsnorm(params["k_norm"], k, cfg.norm_eps)
     if rope:
         q = apply_rope(q, positions, cfg.rope_theta)
-        k = apply_rope(k, positions, cfg.rope_theta)
+        k = apply_rope(k, positions_kv, cfg.rope_theta)
     return q, k, v
 
 
@@ -160,7 +166,7 @@ def causal_attention(cfg: ModelConfig, q: torch.Tensor, k: torch.Tensor,
     b, s = q.shape[:2]
     kernel_path = window is not None and positions is None
     if kernel_path and cfg.attn_softcap is not None:
-        raise NotImplementedError(
+        raise ValueError(
             "sliding-window attention with attn_softcap: the swa kernel has "
             "no softcap (nor has the TPU kernel), and no config sets both")
     if kernel_path:
@@ -196,3 +202,48 @@ def self_attention_with_kv(params, cfg: ModelConfig, x: torch.Tensor,
     out = causal_attention(cfg, q, k, v, positions, window=window,
                            use_kernel=use_kernel)
     return dense(params["wo"], out.reshape(b, s, -1)), k, v
+
+
+def cross_attention_block(params, cfg: ModelConfig, x: torch.Tensor,
+                          memory: torch.Tensor,
+                          mem_valid: Optional[torch.Tensor] = None
+                          ) -> torch.Tensor:
+    """Decoder cross-attention of x (B, S, d) over encoder memory (B, F, d):
+    no RoPE, no mask but ``mem_valid`` (B, F) bool (None: every frame)."""
+    b, s, _ = x.shape
+    sm = memory.shape[1]
+    pos_q = torch.arange(s, device=x.device).expand(b, s)
+    pos_k = torch.arange(sm, device=x.device).expand(b, sm)
+    if mem_valid is not None:
+        pos_k = torch.where(mem_valid, pos_k, -1)
+    q, k, v = _qkv(params, cfg, x, pos_q, rope=False, x_kv=memory)
+    out = flash_attention(q, k, v, pos_q, pos_k, causal=False,
+                          attn_softcap=cfg.attn_softcap)
+    return dense(params["wo"], out.reshape(b, s, -1))
+
+
+def cross_kv(params, cfg: ModelConfig, memory: torch.Tensor):
+    """The cross-attention k and v (B, F, KV, D) of encoder memory: what a
+    prefill caches (``ck``, ``cv``)."""
+    _, k, v = _qkv(params, cfg, memory, None, rope=False)
+    return k, v
+
+
+def cross_query(params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+    """The cross-attention q (B, S, H, D) of decoder states, no RoPE (the
+    reference's decode step projects k and v of x too and drops them)."""
+    return _split_heads(dense(params["wq"], x), cfg.n_heads, cfg.head_dim)
+
+
+def cross_free_self_attention(params, cfg: ModelConfig, x: torch.Tensor,
+                              positions: Optional[torch.Tensor] = None
+                              ) -> torch.Tensor:
+    """Bidirectional (encoder) self-attention, RoPE at ``positions``
+    (default ``arange(S)``)."""
+    b, s, _ = x.shape
+    if positions is None:
+        positions = torch.arange(s, device=x.device).expand(b, s)
+    q, k, v = _qkv(params, cfg, x, positions)
+    out = flash_attention(q, k, v, positions, positions, causal=False,
+                          attn_softcap=cfg.attn_softcap)
+    return dense(params["wo"], out.reshape(b, s, -1))

@@ -1,5 +1,5 @@
-"""Decode-time state: KV caches (full lines and sliding-window rings) and
-recurrent states.
+"""Decode-time state: KV caches (full lines and sliding-window rings), an
+encoder-decoder's cross-attention k and v, and recurrent states.
 
 The port's layout is flat and mirrors ``params["layers"]``:
 
@@ -25,6 +25,7 @@ from repro_torch.models.config import ModelConfig
 from repro_torch.models.kvquant import quant_entry
 from repro_torch.models.rglru import RGLRUState
 from repro_torch.models.xlstm import MLSTMState, SLSTMState
+
 
 def _attn_entry(cfg: ModelConfig, batch: int, max_len: int, dtype, device):
     if cfg.kv_quant:
@@ -60,29 +61,31 @@ def _rglru_entry(cfg: ModelConfig, batch: int, device) -> RGLRUState:
 def block_cache_entry(cfg: ModelConfig, kind: str, batch: int, max_len: int,
                       dtype=torch.bfloat16, device=None):
     """The cache entry of one block of ``kind``: a KV line of ``max_len``
-    slots (``attn``), a ring of ``min(sliding_window, max_len)`` slots
-    (``swa``), or the recurrent state (``rglru``, ``mlstm``, ``slstm``).
-    ``device=None`` means ``cuda``."""
-    if cfg.is_encdec:
-        raise NotImplementedError(
-            "cross-attention caches of encoder-decoder models come with the "
-            "encoder-decoder slice")
+    slots (``attn``, ``moe``), a ring of ``min(sliding_window, max_len)``
+    slots (``swa``), or the recurrent state (``rglru``, ``mlstm``,
+    ``slstm``).  An encoder-decoder's attention entries also hold the
+    cross-attention k and v of the encoder memory, ``ck`` and ``cv`` of
+    (batch, enc_seq, n_kv_heads, head_dim) in ``dtype`` (a prefill replaces
+    them with its memory's own length).  ``device=None`` means ``cuda``."""
     device = "cuda" if device is None else device
-    if kind == "attn":
-        return _attn_entry(cfg, batch, max_len, dtype, device)
-    if kind == "swa":
-        return _attn_entry(cfg, batch, min(cfg.sliding_window, max_len),
-                           dtype, device)
-    if kind == "mlstm":
+    if kind in ("attn", "moe"):
+        entry = _attn_entry(cfg, batch, max_len, dtype, device)
+    elif kind == "swa":
+        entry = _attn_entry(cfg, batch, min(cfg.sliding_window, max_len),
+                            dtype, device)
+    elif kind == "mlstm":
         return _mlstm_entry(cfg, batch, device)
-    if kind == "slstm":
+    elif kind == "slstm":
         return _slstm_entry(cfg, batch, device)
-    if kind == "rglru":
+    elif kind == "rglru":
         return _rglru_entry(cfg, batch, device)
-    if kind == "moe":
-        raise NotImplementedError(
-            "block kind 'moe' is not ported yet; it comes with the MoE slice")
-    raise ValueError(f"unknown block kind {kind}")
+    else:
+        raise ValueError(f"unknown block kind {kind}")
+    if cfg.is_encdec:
+        shape = (batch, cfg.enc_seq, cfg.n_kv_heads, cfg.head_dim)
+        entry["ck"] = torch.zeros(shape, dtype=dtype, device=device)
+        entry["cv"] = torch.zeros(shape, dtype=dtype, device=device)
+    return entry
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,

@@ -1,4 +1,5 @@
-"""Basic layers: dense, RMSNorm, embeddings, rotary embeddings, softcap.
+"""Basic layers: dense, RMSNorm, LayerNorm, embeddings, rotary embeddings,
+softcap.
 
 Plain functions on nested dicts of tensors, as the reference's pytrees:
 ``*_init(gen, ...)`` draws fp32 master weights on the generator's device,
@@ -36,6 +37,21 @@ def rmsnorm(params, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
     var = xf.square().mean(dim=-1, keepdim=True)
     y = xf * torch.rsqrt(var + eps)
     return (y * params["scale"]).to(x.dtype)
+
+
+def layernorm_init(d: int, device):
+    return {"scale": torch.ones((d,), device=device),
+            "bias": torch.zeros((d,), device=device)}
+
+
+def layernorm(params, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    """Mean and population variance (``jnp.var``: ``correction=0``) in
+    fp32, cast back to x's dtype."""
+    xf = x.float()
+    mu = xf.mean(dim=-1, keepdim=True)
+    var = xf.var(dim=-1, keepdim=True, correction=0)
+    y = (xf - mu) * torch.rsqrt(var + eps)
+    return (y * params["scale"] + params["bias"]).to(x.dtype)
 
 
 def embedding_init(gen: torch.Generator, vocab: int, d: int):

@@ -129,16 +129,41 @@ def test_init_cache_matches_the_reference_leaf_for_leaf(name, dtype,
             assert torch.equal(a, b)          # zeros, and m = -1e30
 
 
+def _same_entries(got, want):
+    """Entry for entry, leaf for leaf: type, shape, dtype and values."""
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        assert type(g) is type(w)
+        if isinstance(g, dict):
+            assert set(g) == set(w)
+            g, w = ([e[k] for k in sorted(e)] for e in (g, w))
+        for a, b in zip(tt._leaves(g), tt._leaves(w)):
+            assert a.shape == b.shape and a.dtype == b.dtype
+            assert torch.equal(a, b)
+
+
 def test_init_cache_defaults_to_the_card_and_refuses_later_slices():
+    """``device=None`` is the card; an ``moe`` block's entry is an ``attn``
+    entry, and an encoder-decoder's attention entries hold ``ck``/``cv``
+    of (batch, enc_seq, KV, D), as the reference's ``init_cache`` has them
+    (its stacked cycles unstacked); an unknown kind raises."""
     cfg = configs.get_smoke_config("qwen3-8b")
     if not torch.cuda.is_available():
         with pytest.raises((AssertionError, RuntimeError)):
             tcache.init_cache(cfg, 1, 8)          # device=None is cuda
-    with pytest.raises(NotImplementedError, match="MoE slice"):
-        tcache.block_cache_entry(cfg, "moe", 1, 8, device="cpu")
+    assert list(tcache.block_cache_entry(cfg, "moe", 1, 8, device="cpu")) \
+        == ["k", "v"]
+    with pytest.raises(ValueError, match="unknown block kind"):
+        tcache.block_cache_entry(cfg, "conv", 1, 8, device="cpu")
     encdec = dataclasses.replace(cfg, n_enc_layers=2, enc_seq=4)
-    with pytest.raises(NotImplementedError, match="encoder-decoder slice"):
-        tcache.init_cache(encdec, 1, 8, device="cpu")
+    jenc = dataclasses.replace(j_smoke("qwen3-8b"), n_enc_layers=2,
+                               enc_seq=4)
+    got = tcache.init_cache(encdec, 3, 8, torch.float32, device="cpu")
+    want = convert.cache_from_numpy(
+        _np_tree(jcache.init_cache(jenc, 3, 8, jnp.float32)), encdec, "cpu")
+    _same_entries(got["layers"], want["layers"])
+    assert got["layers"][0]["ck"].shape == (3, 4, cfg.n_kv_heads,
+                                            cfg.head_dim)
 
 
 @pytest.mark.parametrize("softcap", [None, 30.0])
@@ -218,10 +243,23 @@ def test_dense_configs_load_by_name_as_the_reference_has_them(name):
     assert set(configs.get_config(name).layer_kinds()) == {"attn"}
 
 
-@pytest.mark.parametrize("name,slice_", [
-    ("qwen3-moe-30b-a3b", "MoE slice"), ("granite-moe-3b-a800m", "MoE slice"),
-    ("seamless-m4t-large-v2", "encoder-decoder slice"),
-    ("llava-next-34b", "encoder-decoder slice")])
-def test_later_configs_name_their_slice(name, slice_):
-    with pytest.raises(NotImplementedError, match=slice_):
-        configs.get_config(name)
+@pytest.mark.parametrize("name,kind", [
+    ("qwen3-moe-30b-a3b", "moe"), ("granite-moe-3b-a800m", "moe"),
+    ("seamless-m4t-large-v2", "attn"), ("llava-next-34b", "attn")])
+def test_later_configs_name_their_slice(name, kind):
+    """The configs that came with the MoE and encoder-decoder slice load by
+    name as the reference has them, and their smoke configs' caches (bf16,
+    int8 lines too) equal the reference's entry for entry."""
+    from repro.configs import get_config as j_get
+
+    assert dataclasses.asdict(configs.get_config(name)) == \
+        dataclasses.asdict(j_get(name))
+    assert set(configs.get_config(name).layer_kinds()) == {kind}
+    for kv_quant in (False, True):
+        tc = dataclasses.replace(configs.get_smoke_config(name),
+                                 kv_quant=kv_quant)
+        jc = dataclasses.replace(j_smoke(name), kv_quant=kv_quant)
+        got = tcache.init_cache(tc, 2, 12, device="cpu")
+        want = convert.cache_from_numpy(
+            _np_tree(jcache.init_cache(jc, 2, 12)), tc, "cpu")
+        _same_entries(got["layers"], want["layers"])

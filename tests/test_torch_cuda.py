@@ -1118,3 +1118,70 @@ def test_rglru_block_from_a_carried_state_on_the_card(gen):
         outs.append(o)
     assert _rel(torch.cat(outs, 1), whole) <= TOL["fp32"]
     assert _rel(st.h, st_whole.h) <= TOL["fp32"]
+
+
+# --- the MoE kind, prefix embeddings and encoder-decoders on the card -------
+
+@pytest.mark.parametrize("precision", ["fp32", "bf16"])
+@pytest.mark.parametrize("cf", [4.0, 0.5])
+def test_moe_ffn_matches_by_expert_on_the_card(gen, cf, precision):
+    """``moe_ffn`` (scatter into (E, C) buffers, one batched product over
+    experts, gather) against the per-expert loop on the same routing,
+    drop-free and with drops: 1e-4 of max in fp32, 3e-2 in bf16 and 1e-2
+    in norm (the two run their products at other shapes)."""
+    from repro_torch import configs
+    from repro_torch.models import moe
+
+    cfg = dataclasses.replace(
+        configs.get_smoke_config("qwen3-moe-30b-a3b"), d_model=256,
+        moe_d_ff=128, n_experts=16, n_experts_active=4, capacity_factor=cf)
+    params = moe.moe_init(gen, cfg)
+    dtype = torch.float32 if precision == "fp32" else torch.bfloat16
+    x = torch.randn(2, 64, cfg.d_model, device="cuda", generator=gen)
+    x = x.to(dtype)
+    got, aux = moe.moe_ffn(params, cfg, x)
+    want, aux_e = moe.moe_ffn_by_expert(params, cfg, x)
+    assert got.dtype == dtype and float(aux) == float(aux_e)
+    assert _rel(got.float(), want.float()) <= TOL[precision]
+    if precision == "bf16":
+        assert _norm_rel(got.float(), want.float()) <= 1e-2
+    keep = moe._route(params, cfg, x)[2]
+    assert bool(keep.all()) == (cf == 4.0)
+
+
+@pytest.mark.parametrize("name", ["granite-moe-3b-a800m", "qwen3-moe-30b-a3b",
+                                  "llava-next-34b", "seamless-m4t-large-v2"])
+def test_smoke_decode_matches_forward_on_the_card(gen, name):
+    """Each smoke config on the card, fp32 caches: prefill (with its prefix
+    or frame embeddings) and 4 greedy decode steps, each step's logits
+    against the forward over the whole sequence (1e-4 of max); none of
+    these paths launches a kernel."""
+    from repro_torch import configs
+    from repro_torch.models import transformer
+
+    cfg = configs.get_smoke_config(name)
+    params = transformer.init_model(
+        torch.Generator(device="cuda").manual_seed(0), cfg)
+    tokens = torch.randint(0, cfg.vocab_size, (2, 20), device="cuda",
+                           generator=gen)
+    kw = {}
+    if cfg.family == "vlm":
+        kw["prefix_embeds"] = torch.randn(2, cfg.n_prefix_embeddings,
+                                          cfg.d_model, device="cuda",
+                                          generator=gen)
+    if cfg.is_encdec:
+        kw["enc_embeds"] = torch.randn(2, cfg.enc_seq, cfg.d_model,
+                                       device="cuda", generator=gen)
+    P = kw["prefix_embeds"].shape[1] if "prefix_embeds" in kw else 0
+    _reset_serving_launches()
+    lg, cache = transformer.prefill(params, cfg, tokens, P + 24,
+                                    cache_dtype=torch.float32, **kw)
+    seq = tokens
+    for _ in range(4):
+        nt = lg[:, -1].argmax(-1, keepdim=True)
+        lg, cache = transformer.decode_step(params, cfg, nt, cache)
+        seq = torch.cat([seq, nt], dim=1)
+        full, _ = transformer.forward(params, cfg, seq, **kw)
+        assert _rel(lg[:, 0], full[:, -1]) <= TOL["fp32"]
+    assert cache["pos"].tolist() == [P + 24] * 2
+    assert _serving_launches() == (0, 0, 0)

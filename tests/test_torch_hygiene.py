@@ -38,7 +38,8 @@ def test_scan_covers_the_package():
                                   "configs/paper.py", "netsim",
                                   "core/mesh.py", "core/sharded_dmtl.py",
                                   "serving", "models/cache.py",
-                                  "models/kvquant.py", "serve.py"])
+                                  "models/kvquant.py", "serve.py",
+                                  "models/moe.py"])
 def test_scan_covers_the_checkpointed_slice(part):
     target = ROOT / "src" / "repro_torch" / part
     files = [target] if target.suffix else sorted(target.glob("*.py"))

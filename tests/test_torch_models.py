@@ -77,9 +77,13 @@ def models():
 
 
 def test_configs_match_the_reference_and_refuse_later_slices():
+    """All ten of the reference's architectures resolve, under its names
+    and in its order, field for field; an unknown name raises KeyError."""
+    from repro.configs import ARCH_NAMES as J_NAMES
     from repro.configs import get_config as j_get
 
-    for name in SMOKE:
+    assert configs.ARCH_NAMES == J_NAMES and len(J_NAMES) == 10
+    for name in J_NAMES:
         assert dataclasses.asdict(configs.get_config(name)) == \
             dataclasses.asdict(j_get(name))
         assert dataclasses.asdict(configs.get_smoke_config(name)) == \
@@ -87,8 +91,7 @@ def test_configs_match_the_reference_and_refuse_later_slices():
     full = configs.get_config("recurrentgemma-2b")
     assert full.layer_kinds().count("rglru") == 18
     assert full.layer_kinds().count("swa") == 8
-    with pytest.raises(NotImplementedError, match="MoE slice"):
-        configs.get_config("qwen3-moe-30b-a3b")
+    assert not hasattr(configs, "_LATER")
     with pytest.raises(KeyError):
         configs.get_config("no-such-model")
 
@@ -279,22 +282,36 @@ def test_attention_paths_match_reference():
 
 
 def test_later_slices_raise():
+    """What is left to port raises: ``moe_ffn_shardmap`` names the sharding
+    slice (the reference reaches it only under a mesh); a windowed block
+    with ``attn_softcap`` is refused (the swa kernel has no softcap, and no
+    config sets both); an unknown kind, and a mode without its entry, are
+    errors.  The MoE kind, prefix embeddings and encoder-decoders run."""
+    from repro_torch.models import moe
+
     _, tc = _cfgs("h2o-danube-3-4b")
     gen = torch.Generator().manual_seed(0)
-    with pytest.raises(NotImplementedError, match="MoE"):
-        tt.block_init(gen, tc, "moe")
     params = tt.init_model(gen, tc)
     x = torch.zeros(1, 4, tc.d_model)
-    with pytest.raises(NotImplementedError, match="MoE slice"):
-        tt.block_apply({}, tc, "moe", x, mode="decode", entry={})
+    with pytest.raises(NotImplementedError, match="sharding slice"):
+        moe.moe_ffn_shardmap({}, tc, x)
+    with pytest.raises(ValueError, match="unknown block kind"):
+        tt.block_init(gen, tc, "conv")
     with pytest.raises(ValueError, match="cache entry"):
         tt.block_apply(params["layers"][0], tc, "swa", x, mode="decode")
-    with pytest.raises(NotImplementedError, match="softcap"):
+    with pytest.raises(ValueError, match="softcap"):
         tt.block_apply(params["layers"][0],
                        dataclasses.replace(tc, attn_softcap=50.0), "swa", x)
-    with pytest.raises(NotImplementedError, match="prefix"):
-        tt.encode(params, tc, torch.zeros(1, 4, dtype=torch.long),
+    blk = tt.block_init(gen, configs.get_smoke_config("granite-moe-3b-a800m"),
+                        "moe")
+    assert "moe" in blk and "mlp" not in blk
+    h = tt.encode(params, tc, torch.zeros(1, 4, dtype=torch.long),
                   prefix_embeds=x)
-    with pytest.raises(NotImplementedError, match="encoder-decoder slice"):
-        tt.prefill(params, tc, torch.zeros(1, 4, dtype=torch.long), 8,
-                   prefix_embeds=x)
+    assert h.shape == (1, 8, tc.d_model)
+    _, cache = tt.prefill(params, tc, torch.zeros(1, 4, dtype=torch.long), 8,
+                          prefix_embeds=x)
+    assert cache["pos"].tolist() == [8]
+    ed = configs.get_smoke_config("seamless-m4t-large-v2")
+    with pytest.raises(ValueError, match="enc_embeds"):
+        tt.encode(tt.init_model(gen, ed), ed,
+                  torch.zeros(1, 4, dtype=torch.long))
