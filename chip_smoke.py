@@ -150,6 +150,25 @@ Phases (any failure raises and the script exits non-zero):
      ``pooled_features(..., enc_embeds=)`` into ``gram_fused``.  Depth is
      cut where fp32 weights would not fit the card (qwen3-moe 122 GB,
      llava 137 GB whole);
+  8d. the training path: (a) recurrentgemma-2b at full width and depth
+     (26 layers, seeded fp32 weights, bf16 compute, remat on: the train
+     variant) through ``repro_torch.launch.train.main``, 5 AdamW steps of
+     2 x 2048 tokens (train_4k's 256 x 4096 cut for memory and time): each
+     step's loss, ce, grad_norm, lr and seconds, the peak memory, the
+     step's analytic FLOPs and achieved TFLOP/s, and no ``gram``/``swa``/
+     ``rglru``/``mlstm`` launch (the step runs their plain versions);
+     (b) on the same seeded weights: the loss through the kernel forward
+     (``use_kernel=True``, no grad: 8 ``swa`` and 18 ``rglru`` launches)
+     against the plain forward a step differentiates (``TOL["bf16"]`` of
+     |loss|); in fp32, the gradient of 2 microbatches against 1
+     (``MICROBATCH_TOL`` in norm over all leaves, beside the same run
+     twice); the central difference of the loss along g / |g| against |g|
+     (``FD_TOL``); (c) the model axis: ``moe_ffn_shardmap`` in a world of
+     4 gloo ranks on the card, mesh (data 2, model 2), one
+     granite-moe-3b-a800m MoE layer at full width in fp32, drop-free, 4 x
+     1024 tokens: the gathered output and the expert weights' gradients
+     (summed over data, gathered over F) against ``moe_ffn_gspmd`` on the
+     whole batch (``MOE_ORACLE_TOL`` fp32), the aux equal;
   9. the ``gram_tri`` and ``gram_dense`` cases of phase 3 at the main
      path's and the full shape, and the bf16 ragged ones, split by
      ``torch.profiler`` into device time per kernel, theirs and the
@@ -2661,6 +2680,336 @@ def moe_encdec_phase(torch, wrappers) -> dict:
     return out
 
 
+# phase 8d: the training path.  TRAIN_* is (a)'s run; (b)'s gates run on
+# the same seeded weights.  MICROBATCH_TOL bounds the accumulated gradient
+# of 2 microbatches against 1 in norm over all leaves (fp32; only the
+# order of the sums differs).  The directional derivative: the loss's fp32
+# roundoff is taken as FD_LOSS_ULPS ulps of the loss, eps is chosen so
+# that eps |g| is FD_STEP_OVER_ROUNDOFF times it, which puts roundoff's
+# share of |central difference - |g|| / |g| near 1 / FD_STEP_OVER_ROUNDOFF;
+# FD_TOL is ten times that (PERF.md section 6, PR 26, chosen before the
+# first card run).
+TRAIN_ARCH = "recurrentgemma-2b"
+TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ = 5, 2, 2048
+MICROBATCH_TOL = 1e-5
+FD_BATCH, FD_SEQ = 1, 512
+FD_LOSS_ULPS = 64
+FD_STEP_OVER_ROUNDOFF = 1000.0
+FD_TOL = 1e-2
+MODEL_AXIS_MESH = (2, 2)
+MODEL_AXIS_B, MODEL_AXIS_S = 4, 1024
+MODEL_AXIS_TIMEOUT_S = 300.0
+
+
+def tree_rel_norm(torch, got, want) -> float:
+    """|got - want| / |want| in norm over every leaf of two trees."""
+    from repro_torch.optim import tree_leaves
+
+    num = den = 0.0
+    for a, b in zip(tree_leaves(got), tree_leaves(want), strict=True):
+        num += float(torch.sum((a.double() - b.double()) ** 2))
+        den += float(torch.sum(b.double() ** 2))
+    return math.sqrt(num / den)
+
+
+def train_batch(params, cfg, batch: int, seq: int, step: int = 0):
+    """The pipeline's batch of ``step`` on the parameters' device."""
+    from repro_torch.data import pipeline
+
+    return pipeline.make_batch(pipeline.DataConfig(
+        vocab_size=cfg.vocab_size, seq_len=seq, global_batch=batch), step,
+        params["embed"]["table"].device)
+
+
+def kernel_vs_plain_loss(torch, params, cfg, wrappers) -> dict:
+    """(b)1: ``loss_fn`` through the kernel forward and through the plain
+    forward a training step differentiates, on one batch, no grad; the
+    kernels each side launched."""
+    from repro_torch.training import steps
+
+    batch = train_batch(params, cfg, TRAIN_BATCH, TRAIN_SEQ)
+    out = {}
+    with torch.no_grad():
+        for name, use_kernel in (("kernel", True), ("plain", False)):
+            reset_all(wrappers)
+            out[f"{name}_loss"] = float(steps.loss_fn(
+                params, cfg, batch, use_kernel=use_kernel)[0])
+            out[f"{name}_launches"] = all_launches(wrappers)
+    out["rel"] = abs(out["kernel_loss"] - out["plain_loss"]) / abs(
+        out["plain_loss"])
+    return out
+
+
+def microbatch_gate(torch, params, cfg) -> dict:
+    """(b)2: the loss and accumulated gradient of 2 microbatches against 1
+    in ``cfg``'s (fp32) compute, beside the 1-microbatch run repeated."""
+    from repro_torch.training import steps
+
+    batch = train_batch(params, cfg, TRAIN_BATCH, FD_SEQ)
+    l1, _, g1 = steps.loss_and_grads(params, cfg, batch, 1)
+    l1b, _, g1b = steps.loss_and_grads(params, cfg, batch, 1)
+    control = tree_rel_norm(torch, g1b, g1)
+    del g1b
+    l2, _, g2 = steps.loss_and_grads(params, cfg, batch, 2)
+    rel = tree_rel_norm(torch, g2, g1)
+    return {"grad_rel_norm": rel, "control_grad_rel_norm": control,
+            "loss_rel": abs(float(l2) - float(l1)) / abs(float(l1)),
+            "control_loss_rel": abs(float(l1b) - float(l1)) / abs(float(l1))}
+
+
+def directional_gate(torch, params, cfg) -> dict:
+    """(b)3: the central difference of the plain fp32 loss along v = g /
+    |g| against |g|, eps chosen from the loss's fp32 roundoff."""
+    from repro_torch.optim import global_norm, tree_map
+    from repro_torch.training import steps
+
+    batch = train_batch(params, cfg, FD_BATCH, FD_SEQ)
+    loss, _, grads = steps.loss_and_grads(params, cfg, batch, 1)
+    gnorm = float(global_norm(grads))
+    ulp = 2.0 ** (math.frexp(abs(float(loss)))[1] - 24)    # fp32's
+    eps = FD_STEP_OVER_ROUNDOFF * FD_LOSS_ULPS * ulp / gnorm
+    side = {}
+    with torch.no_grad():
+        for sign in (1, -1):
+            shifted = tree_map(lambda p, g: p + (sign * eps / gnorm) * g,
+                               params, grads)
+            side[sign] = float(steps.loss_fn(shifted, cfg, batch)[0])
+            del shifted
+    fd = (side[1] - side[-1]) / (2 * eps)
+    return {"loss": float(loss), "grad_norm": gnorm, "eps": eps,
+            "loss_ulp": ulp, "central_difference": fd,
+            "rel": abs(fd - gnorm) / gnorm}
+
+
+def model_axis_inputs(torch):
+    """(c)'s layer, weights and tokens, drawn on the card from one seed (so
+    every rank draws the same ones)."""
+    from repro_torch import configs
+    from repro_torch.models import moe
+
+    cfg = dataclasses.replace(drop_free(configs.get_config(
+        "granite-moe-3b-a800m")), dtype="float32", moe_impl="shardmap")
+    gen = torch.Generator(device="cuda").manual_seed(26)
+    params = moe.moe_init(gen, cfg)
+    x = torch.randn((MODEL_AXIS_B, MODEL_AXIS_S, cfg.d_model),
+                    generator=gen, device="cuda")
+    return cfg, params, x
+
+
+def model_axis_world(rank: int, t_spawn: float) -> dict:
+    """(c)'s rank ``rank`` (module level: a spawned rank imports it):
+    ``moe_ffn`` under ``use_mesh`` (the shardmap schedule), a timed call,
+    then its gradients of sum(out ** 2) + aux / world, summed over the
+    data axis (and the router's over both axes) with ``Mesh.all_reduce``;
+    returns its output block, aux, and its F slice of each expert weight's
+    gradient (data coordinate 0 only)."""
+    import torch
+
+    from repro_torch.core.mesh import make_mesh
+    from repro_torch.models import moe
+    from repro_torch.models.sharding import use_mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    mesh = make_mesh(MODEL_AXIS_MESH, ("data", "model"), device="cuda")
+    ready_s = time.time() - t_spawn
+    cfg, params, x = model_axis_inputs(torch)
+    for leaf in params.values():
+        leaf["w"].requires_grad_()
+    with use_mesh(mesh):
+        with torch.no_grad():
+            moe.moe_ffn(params, cfg, x)             # warm-up
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            moe.moe_ffn(params, cfg, x)
+            torch.cuda.synchronize()
+            call_s = time.perf_counter() - t
+        out, aux = moe.moe_ffn(params, cfg, x)
+        loss = out.square().sum() + aux / mesh.size
+        grads = dict(zip(params, torch.autograd.grad(
+            loss, [v["w"] for v in params.values()])))
+    i, j = mesh.coords(rank)
+    with torch.no_grad():
+        grads = {k: mesh.all_reduce(g, "data") for k, g in grads.items()}
+        grads["router"] = mesh.all_reduce(grads["router"], "model")
+    n, F_ = MODEL_AXIS_MESH[1], cfg.moe_d_ff
+    fs = slice(j * (F_ // n), (j + 1) * (F_ // n))
+    res = {"coords": (i, j), "ready_s": ready_s, "call_s": call_s,
+           "out": out.detach().cpu(), "aux": float(aux.detach())}
+    if i == 0:
+        res["grads"] = {"w_gate": grads["w_gate"][:, :, fs].cpu(),
+                        "w_up": grads["w_up"][:, :, fs].cpu(),
+                        "w_down": grads["w_down"][:, fs].cpu()}
+        if j == 0:
+            res["grads"]["router"] = grads["router"].cpu()
+    return res
+
+
+def model_axis_gate(torch) -> dict:
+    """(c): the world against ``moe_ffn_gspmd`` on the whole batch, on the
+    card: output, expert and router gradients (max-relative and in norm),
+    aux; the world's start-up and a call's seconds."""
+    from repro_torch.core.mesh import spawn
+    from repro_torch.models import moe
+
+    t0 = time.perf_counter()
+    ranks = spawn(model_axis_world, math.prod(MODEL_AXIS_MESH),
+                  backend="gloo", device="cuda",
+                  timeout_s=MODEL_AXIS_TIMEOUT_S, args=(time.time(),))
+    world_s = time.perf_counter() - t0
+    cfg, params, x = model_axis_inputs(torch)
+    leaves = {k: v["w"].requires_grad_() for k, v in params.items()}
+    t = time.perf_counter()
+    want, aux = moe.moe_ffn_gspmd(params, cfg, x)
+    torch.cuda.synchronize()
+    gspmd_s = time.perf_counter() - t
+    g_want = dict(zip(leaves, torch.autograd.grad(
+        want.square().sum() + aux, list(leaves.values()))))
+    want, aux = want.detach(), aux.detach()
+    B, S, d = x.shape
+    n_data, n_model = MODEL_AXIS_MESH
+    bl, dl = B // n_data, d // n_model
+    got = torch.full_like(want, float("nan"))
+    g_got = {"router": None, "w_gate": [None] * n_model,
+             "w_up": [None] * n_model, "w_down": [None] * n_model}
+    for r in ranks:
+        i, j = r["coords"]
+        got[i * bl:(i + 1) * bl, :, j * dl:(j + 1) * dl] = r["out"].cuda()
+        for k, g in r.get("grads", {}).items():
+            if k == "router":
+                g_got[k] = g.cuda()
+            else:
+                g_got[k][j] = g.cuda()
+    g_got = {k: (v if k == "router" else
+                 torch.cat(v, dim=1 if k == "w_down" else 2))
+             for k, v in g_got.items()}
+    rec = {"mesh": MODEL_AXIS_MESH, "B": B, "S": S, "d": d,
+           "E": cfg.n_experts, "K": cfg.n_experts_active, "F": cfg.moe_d_ff,
+           "capacity_factor": cfg.capacity_factor,
+           "out": {"rel": rel_err(torch, got, want)[1],
+                   "norm_rel": norm_rel(torch, got, want)},
+           "grads": {k: {"rel": rel_err(torch, g_got[k], g_want[k])[1],
+                         "norm_rel": norm_rel(torch, g_got[k], g_want[k])}
+                     for k in g_want},
+           "aux": [r["aux"] for r in ranks], "gspmd_aux": float(aux),
+           "world_s": world_s, "ranks_ready_s": max(r["ready_s"]
+                                                    for r in ranks),
+           "call_s": [r["call_s"] for r in ranks], "gspmd_call_s": gspmd_s,
+           "tol": MOE_ORACLE_TOL["fp32"]}
+    return rec
+
+
+def model_axis_failures(rec) -> list:
+    """What of (c)'s record breaks ``MOE_ORACLE_TOL`` fp32 or the aux."""
+    limit = MOE_ORACLE_TOL["fp32"]
+    bad = [f"8d (c): moe_ffn_shardmap {part} off moe_ffn_gspmd by "
+           f"{r['rel']:.3g} of max, {r['norm_rel']:.3g} in norm, above "
+           f"{limit}"
+           for part, r in [("output", rec["out"])] + [
+               (f"grad {k}", v) for k, v in rec["grads"].items()]
+           if not (r["rel"] <= limit["rel"]
+                   and r["norm_rel"] <= limit["norm_rel"])]
+    if not all(a == rec["gspmd_aux"] for a in rec["aux"]):
+        bad.append(f"8d (c): the world's aux {rec['aux']} is not the "
+                   f"unsharded {rec['gspmd_aux']}")
+    return bad
+
+
+def check_model_axis(rec) -> None:
+    bad = model_axis_failures(rec)
+    check(not bad, "; ".join(bad))
+
+
+def training_phase(torch, wrappers) -> dict:
+    """Phase 8d (module docstring): (a) the training run through the entry
+    point, (b) the three gates on the same seeded weights, (c) the model
+    axis."""
+    from repro_torch import analysis, configs
+    from repro_torch.launch import shapes, train
+    from repro_torch.models import transformer
+
+    t_phase = time.perf_counter()
+    out = {}
+    # (a) launch.train.main at full width and depth
+    reset_all(wrappers)
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    log = train.main(["--arch", TRAIN_ARCH, "--steps", str(TRAIN_STEPS),
+                      "--batch", str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ),
+                      "--device", "cuda"])
+    torch.cuda.synchronize()
+    launches = all_launches(wrappers)
+    cfg = shapes.variant_for_shape(configs.get_config(TRAIN_ARCH),
+                                   shapes.SHAPES["train_4k"])
+    flops = analysis.analytic_cost(cfg, shapes.InputShape(
+        "step", "train", TRAIN_SEQ, TRAIN_BATCH))["flops"]
+    step_s = [row["step_seconds"] for row in log]
+    steady = statistics.median(step_s[1:])
+    out["a_run"] = {
+        "arch": TRAIN_ARCH, "layers": cfg.n_layers, "remat": cfg.remat,
+        "batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "steps": TRAIN_STEPS,
+        "log": [{k: row[k] for k in ("step", "loss", "ce", "grad_norm",
+                                     "lr", "step_seconds")} for row in log],
+        "seconds": time.perf_counter() - t,
+        "step_s_median_after_first": steady,
+        "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "analytic_flops": flops, "achieved_tflops": flops / steady / 1e12,
+        "card": nvidia_smi(), "launches": launches,
+        "last_loss_below_first": log[-1]["loss"] < log[0]["loss"]}
+    emit({"phase": "training_a_run", **out["a_run"]})
+    check(all(math.isfinite(row["loss"]) and math.isfinite(row["grad_norm"])
+              for row in log), f"8d (a): non-finite loss or grad_norm {log}")
+    check(not any(launches.values()), f"8d (a): the training steps launched "
+          f"{launches}, expected no kernel")
+    torch.cuda.empty_cache()
+
+    # (b) the gates on the same seeded weights
+    t = time.perf_counter()
+    params = transformer.init_model(0, cfg, device="cuda")
+    kp = kernel_vs_plain_loss(torch, params, cfg, wrappers)
+    emit({"phase": "training_b1_kernel_vs_plain", **kp,
+          "tol": TOL["bf16"]})
+    want = dict.fromkeys(kp["kernel_launches"], 0)
+    kinds = cfg.layer_kinds()
+    want.update(swa=kinds.count("swa"), rglru=kinds.count("rglru"))
+    check(kp["kernel_launches"] == want, f"8d (b)1: the kernel forward "
+          f"launched {kp['kernel_launches']}, expected {want}")
+    check(not any(kp["plain_launches"].values()), f"8d (b)1: the plain "
+          f"forward launched {kp['plain_launches']}")
+    check(kp["rel"] <= TOL["bf16"], f"8d (b)1: the kernel forward's loss "
+          f"{kp['kernel_loss']} off the plain forward's {kp['plain_loss']} "
+          f"by {kp['rel']:.3g} of |loss|, above {TOL['bf16']}")
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    mb = microbatch_gate(torch, params, cfg32)
+    emit({"phase": "training_b2_microbatches", **mb, "tol": MICROBATCH_TOL})
+    check(mb["grad_rel_norm"] <= MICROBATCH_TOL
+          and mb["loss_rel"] <= MICROBATCH_TOL,
+          f"8d (b)2: 2 microbatches off 1 by {mb['grad_rel_norm']:.3g} in "
+          f"norm (loss {mb['loss_rel']:.3g}), above {MICROBATCH_TOL}")
+    torch.cuda.empty_cache()
+    fd = directional_gate(torch, params, cfg32)
+    emit({"phase": "training_b3_directional", **fd, "tol": FD_TOL})
+    check(fd["rel"] <= FD_TOL, f"8d (b)3: the central difference "
+          f"{fd['central_difference']:.6g} off |g| {fd['grad_norm']:.6g} by "
+          f"{fd['rel']:.3g}, above {FD_TOL}")
+    out["b_gates"] = {"kernel_vs_plain": kp, "microbatches": mb,
+                      "directional": fd, "seconds": time.perf_counter() - t}
+    del params
+    torch.cuda.empty_cache()
+
+    # (c) the model axis
+    t = time.perf_counter()
+    rec = model_axis_gate(torch)
+    rec["seconds"] = time.perf_counter() - t
+    emit({"phase": "training_c_model_axis", **rec})
+    check_model_axis(rec)
+    out["c_model_axis"] = rec
+    out["launches"] = {"training": launches,
+                       "kernel_vs_plain": kp["kernel_launches"]}
+    out["seconds"] = time.perf_counter() - t_phase
+    return out
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import torch
@@ -3168,6 +3517,14 @@ def main() -> int:
     emit({"phase": "moe_encdec", **moe_encdec})
     torch.cuda.empty_cache()
 
+    # 8d. the training path -----------------------------------------------------
+    training = training_phase(torch, wrappers)
+    emit({"phase": "training", "seconds": training["seconds"],
+          "a_run": training["a_run"], "b_gates": training["b_gates"],
+          "c_model_axis": {k: v for k, v in training["c_model_axis"].items()
+                           if k != "tol"}})
+    torch.cuda.empty_cache()
+
     sources = {"gram_tri": "src/repro/kernels/gram/kernel.py:224",
                "gram_fused": "src/repro/kernels/gram/kernel.py:464",
                "gram_tri_q": "src/repro/kernels/gram/kernel.py:334",
@@ -3208,6 +3565,9 @@ def main() -> int:
                if name in serving_launches else {}),
             "moe_encdec_launches": {part: moe_encdec["launches"][part][name]
                                     for part in MOE_LAUNCH_PARTS},
+            "training_launches": training["launches"]["training"][name],
+            "training_kernel_vs_plain_launches":
+                training["launches"]["kernel_vs_plain"][name],
             "cases": cs,
         })
     emit({"phase": "total", "seconds": time.perf_counter() - t_start})

@@ -5,7 +5,9 @@ statistics) into the port's objects on a given device.
 that numpy can read) and lays it out as the port's flat layer list (and
 an encoder-decoder's encoder as a list of its blocks);
 ``cache_from_numpy`` does the same for a decode cache (``prefill``'s), so
-that the port can decode on from a cache that the reference filled.
+that the port can decode on from a cache that the reference filled, and
+``adamw_state_from_numpy`` for an optimizer state, so that a run can carry
+on from the reference's mid-run moments.
 
 ``Graph`` needs nothing: the port builds it from the same generator and
 seed, and gets the same edge list."""
@@ -20,6 +22,7 @@ from repro_torch.core.engine import DenseState, SufficientStats
 from repro_torch.models.kvquant import QuantizedKV
 from repro_torch.models.rglru import RGLRUState
 from repro_torch.models.xlstm import MLSTMState, SLSTMState
+from repro_torch.optim.adamw import AdamWState, tree_map
 
 
 def _tensor(x, device) -> torch.Tensor:
@@ -80,15 +83,21 @@ def model_from_numpy(params, cfg, device="cuda"):
     ``enc_norm``.  MoE blocks' (E, d, F) expert weights keep their layout.
     Dense weights keep their (d_in, d_out) orientation; every leaf becomes
     fp32."""
-    n_cycles = cfg.n_layers // len(cfg.block_pattern)
+    return _unstacked(params, cfg.n_layers, len(cfg.block_pattern),
+                      cfg.n_enc_layers, device, cfg.name)
+
+
+def _unstacked(params, n_layers: int, n_pattern: int, n_enc: int, device,
+               name: str):
+    """The reference's stacked model tree -> the port's flat layout."""
+    n_cycles = n_layers // n_pattern
     layers = []
     for c in range(n_cycles):
         layers.extend(_tree_tensors(blk, device, c) for blk in params["cycles"])
     layers.extend(_tree_tensors(blk, device) for blk in params["rem"])
-    if len(layers) != cfg.n_layers:
+    if len(layers) != n_layers:
         raise ValueError(
-            f"params hold {len(layers)} layers, cfg {cfg.name!r} has "
-            f"{cfg.n_layers}")
+            f"params hold {len(layers)} layers, {name!r} has {n_layers}")
     out = {"embed": _tree_tensors(params["embed"], device),
            "final_norm": _tree_tensors(params["final_norm"], device),
            "layers": layers}
@@ -96,9 +105,38 @@ def model_from_numpy(params, cfg, device="cuda"):
         out["lm_head"] = _tree_tensors(params["lm_head"], device)
     if params.get("encoder") is not None:
         out["encoder"] = [_tree_tensors(params["encoder"], device, i)
-                          for i in range(cfg.n_enc_layers)]
+                          for i in range(n_enc)]
         out["enc_norm"] = _tree_tensors(params["enc_norm"], device)
     return out
+
+
+def adamw_state_from_numpy(state, like, device="cuda") -> AdamWState:
+    """The reference's ``AdamWState`` (count, and m and v as trees of arrays
+    in the reference's model layout, ``jax.tree.map(np.asarray, state)``)
+    -> the port's, on ``device``: m and v laid out as ``like``, the port's
+    parameter tree (``model_from_numpy``'s layout), leaf for leaf the same
+    shapes; count int32."""
+    n_layers = len(like["layers"])
+    n_enc = len(like.get("encoder", ()))
+    cycles = state.m.get("cycles")
+    # no full cycle: any pattern longer than the stack
+    n_pattern = len(cycles) if cycles is not None else n_layers + 1
+
+    def leaf(want, got):
+        if got.shape != want.shape:
+            raise ValueError(f"a moment of shape {tuple(got.shape)} where "
+                             f"the parameter is {tuple(want.shape)}")
+        return got
+
+    def moment(tree):
+        # rebuilt in like's nesting and key order
+        return tree_map(leaf, like, _unstacked(
+            tree, n_layers, n_pattern, n_enc, device, "the parameter tree"))
+
+    return AdamWState(
+        count=torch.tensor(int(np.asarray(state.count)), dtype=torch.int32,
+                           device=device),
+        m=moment(state.m), v=moment(state.v))
 
 
 def _array_tensor(x, device) -> torch.Tensor:

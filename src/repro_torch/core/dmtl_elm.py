@@ -237,13 +237,14 @@ def fit(
             )
         # the dispatcher validates tape=/channel=/aged_duals= before each
         # rank reduces only its own agent's rows
+        agents = mesh.agent_mesh(agent_axes)
         return sharded_dmtl._dispatch_sharded(
             None, mesh, agent_axes, cfg, g, schedule=schedule, tape=tape,
             channel=channel, aged_duals=aged_duals,
             checkpoint_dir=checkpoint_dir, checkpoint_every=checkpoint_every,
             resume=resume, telemetry=telemetry, trace_dir=trace_dir,
             health=health, stats_fn=lambda: engine.produce_stats(
-                engine.own_rows(H, mesh), engine.own_rows(T, mesh),
+                engine.own_rows(H, agents), engine.own_rows(T, agents),
                 producer=cfg.stats_producer, feature_map=feature_map,
                 precision=cfg.stats_precision, use_kernel=use_kernel))
     if telemetry:

@@ -1396,7 +1396,10 @@ def _make_sharded_runner(stats: SufficientStats, mesh,
                          agent_axes: Sequence[str],
                          cfg: ConsensusConfig) -> Runner:
     """Runner of :func:`fit_sharded`: the ring/torus of the agent axes."""
-    axes = mesh.check_agent_axes(agent_axes)
+    # the checkpoint writer and its barrier span the whole mesh; the agents
+    # run on this rank's line of agent axes (the other axes replicate them)
+    full, mesh = mesh, mesh.agent_mesh(agent_axes)
+    axes = mesh.axis_names
     sizes = _ring_sizes(mesh, axes)
     m, t = mesh.size, mesh.rank
     st = _shard_stats(stats, mesh)
@@ -1433,7 +1436,7 @@ def _make_sharded_runner(stats: SufficientStats, mesh,
                         **_gathered(mesh, U=cur.U, A=cur.A, lam=cur.lam)), \
             diags
 
-    return Runner("sharded", cfg, init_fn, segment_fn, mesh=mesh)
+    return Runner("sharded", cfg, init_fn, segment_fn, mesh=full)
 
 
 def fit_sharded(stats: SufficientStats, mesh, agent_axes: Sequence[str],
@@ -1480,7 +1483,10 @@ def _make_sharded_graph_runner(
     absolute tick, so a resumed segment replays bit for bit."""
     from repro_torch.core.graph import compile_edge_schedule
 
-    axes = mesh.check_agent_axes(agent_axes)
+    # the checkpoint writer and its barrier span the whole mesh; the agents
+    # run on this rank's line of agent axes (the other axes replicate them)
+    full, mesh = mesh, mesh.agent_mesh(agent_axes)
+    axes = mesh.axis_names
     m, t = mesh.size, mesh.rank
     st = _shard_stats(stats, mesh)
     if g.m != m:
@@ -1748,7 +1754,7 @@ def _make_sharded_graph_runner(
                                               hist=hist,
                                               lam_hist=lam_hist)), diags
 
-    return Runner("sharded_graph", cfg, init_fn, segment_fn, mesh=mesh)
+    return Runner("sharded_graph", cfg, init_fn, segment_fn, mesh=full)
 
 
 def fit_sharded_graph(

@@ -20,6 +20,12 @@ program:
   every rank (the gathered diagnostics and final state; float sums over
   agents are then taken in agent order, never by ``all_reduce``, whose
   reduction order the library picks).
+* :meth:`Mesh.agent_mesh`: the agents' mesh when some axes hold none (a
+  ``model`` axis beside ``data``): those axes are replicated, each of
+  their coordinates running the same agents on its own line of ranks.
+* :meth:`Mesh.axis_group` / :meth:`Mesh.all_reduce`: ``jax.lax.psum``
+  over one axis (``models/moe.py::moe_ffn_shardmap``'s sum over
+  ``model``), differentiable.
 * :func:`spawn`: start a world of ranks on this host, for the tests and the
   smoke script (``torchrun`` is the launcher of a real deployment).
 
@@ -42,6 +48,7 @@ import sys
 import tempfile
 import time
 import traceback
+import warnings
 from pathlib import Path
 from typing import Callable, Sequence
 
@@ -60,6 +67,9 @@ class Mesh:
     rank: int
     device: torch.device
     backend: str
+    # the process groups of sub-meshes (``_subgroup``), made once each
+    _groups: dict = dataclasses.field(default_factory=dict, compare=False,
+                                      repr=False)
 
     @property
     def shape(self) -> dict[str, int]:
@@ -101,25 +111,79 @@ class Mesh:
             perm.append((rank, self.flat(c)))
         return tuple(perm)
 
-    def check_agent_axes(self, agent_axes: Sequence[str]) -> tuple[str, ...]:
-        """The agent axes as a tuple: every mesh axis, in the mesh's order
-        (rank = agent index).  A mesh axis that holds no agents would shard
-        something else across it, the model-sharding layer of
-        ``repro/launch/shardings.py``, which is not ported."""
-        axes = tuple(agent_axes)
+    def _axis_order(self, axes: Sequence[str], what: str) -> tuple[str, ...]:
+        axes = tuple(axes)
         unknown = [a for a in axes if a not in self.axis_names]
         if unknown:
-            raise ValueError(f"agent axes {unknown} are not axes of the mesh "
+            raise ValueError(f"{what} {unknown} are not axes of the mesh "
                              f"{self.axis_names}")
-        extra = [a for a in self.axis_names if a not in axes]
-        if extra:
-            raise NotImplementedError(
-                f"mesh axes {extra} hold no agents: sharding a model over "
-                f"them is the port of sharding.py (ROADMAP queue 1 item 6)")
-        if axes != self.axis_names:
-            raise ValueError(f"agent_axes {axes} must list the mesh's axes in "
-                             f"the mesh's order {self.axis_names}")
+        if axes != tuple(a for a in self.axis_names if a in axes):
+            raise ValueError(f"{what} {axes} must be listed in the mesh's "
+                             f"order {self.axis_names}")
         return axes
+
+    def _subgroup(self, axes: Sequence[str]) -> tuple[object, int]:
+        """(the process group of the ranks that share this rank's
+        coordinates on every axis but ``axes``, this rank's index in it).
+
+        The index is the row-major flattening of the rank's coordinates on
+        ``axes`` (listed in the mesh's order).  The first call for a set of
+        axes makes one ``dist.new_group`` for every such line of ranks, in
+        rank order, which every rank of the process group must do alike, as
+        ``dist.new_group`` asks; later calls reuse them."""
+        axes = self._axis_order(axes, "axes")
+        if axes == self.axis_names:
+            return self.group, self.rank
+        if axes not in self._groups:
+            picked = [self.axis_names.index(a) for a in axes]
+            lines: dict[tuple, list[int]] = {}
+            for rank in range(self.size):
+                c = self.coords(rank)
+                key = tuple(x for i, x in enumerate(c) if i not in picked)
+                lines.setdefault(key, []).append(rank)
+            mine = None
+            for line in lines.values():
+                group = dist.new_group([self._peer(r) for r in line])
+                if self.rank in line:
+                    mine = (group, line.index(self.rank))
+            self._groups[axes] = mine
+        return self._groups[axes]
+
+    def axis_group(self, name: str):
+        """The process group of this rank's line along axis ``name`` (the
+        other coordinates fixed): the group of ``jax.lax.psum(x, name)``."""
+        return self._subgroup((name,))[0]
+
+    def all_reduce(self, x: torch.Tensor, axis: str) -> torch.Tensor:
+        """``jax.lax.psum(x, axis)``: the sum of ``x`` over this rank's line
+        along ``axis``, on every rank of it.  Differentiable
+        (``torch.distributed.nn``: the gradient is summed over the line in
+        turn); over gloo a CUDA tensor goes through host memory."""
+        from torch.distributed.nn.functional import all_reduce
+
+        group = self.axis_group(axis)
+        with warnings.catch_warnings():
+            # deprecated for torch.distributed._functional_collectives,
+            # whose all_reduce has no backward
+            warnings.simplefilter("ignore", FutureWarning)
+            return all_reduce(self._wire(x), group=group).to(x.device)
+
+    def agent_mesh(self, agent_axes: Sequence[str]) -> "Mesh":
+        """The mesh of the agents: ``agent_axes`` (in the mesh's order; rank
+        = agent index) over this rank's line of them.
+
+        Every other axis of the mesh holds no agents and is replicated, as
+        the reference places agent state with ``P(agent_axes)``: each of its
+        coordinates runs the same agents, on its own line of ranks, and
+        messages move along the agent axes with the other coordinates
+        fixed.  The mesh itself when every axis holds agents."""
+        axes = self._axis_order(agent_axes, "agent_axes")
+        if axes == self.axis_names:
+            return self
+        group, rank = self._subgroup(axes)
+        return Mesh(axis_names=axes, sizes=tuple(self.shape[a] for a in axes),
+                    group=group, rank=rank, device=self.device,
+                    backend=self.backend)
 
     def _peer(self, rank: int) -> int:
         return rank if self.group is None else dist.get_global_rank(

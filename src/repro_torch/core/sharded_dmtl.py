@@ -23,6 +23,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import math
 from typing import Optional, Sequence
 
 import torch
@@ -92,7 +93,8 @@ def _dispatch_sharded(stats, mesh, agent_axes, cfg, g: Optional[Graph], *,
             state, diags = runner.run()
     if tracer is not None and mesh.rank == 0:
         # once, as the reference's single controller writes them
-        meta = {"executor": exec_name, "m": mesh.size}
+        meta = {"executor": exec_name,
+                "m": math.prod(mesh.shape[a] for a in agent_axes)}
         if g is not None:
             meta["n_edges"] = g.n_edges
         tracer.export(trace_dir)
@@ -173,11 +175,12 @@ def dmtl_elm_fit_sharded(
     ``cfg.stats_precision``), then runs :func:`dmtl_fit_from_stats`'s
     dispatch.  Returns ``(U (m, L, r), A (m, r, d), diagnostics)`` on every
     rank."""
+    agents = mesh.agent_mesh(agent_axes)
     return _dispatch_sharded(
         None, mesh, agent_axes, cfg, g, tape=tape, channel=channel,
         aged_duals=aged_duals, checkpoint_dir=checkpoint_dir,
         checkpoint_every=checkpoint_every, resume=resume,
         telemetry=telemetry, trace_dir=trace_dir, health=health,
         stats_fn=lambda: engine.produce_stats(
-            engine.own_rows(H, mesh), engine.own_rows(T, mesh),
+            engine.own_rows(H, agents), engine.own_rows(T, agents),
             precision=cfg.stats_precision, use_kernel=use_kernel))

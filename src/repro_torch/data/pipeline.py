@@ -1,12 +1,26 @@
-"""Streaming stats accumulation: the pipeline-side bridge into the consensus
-engine.  ``stream_sufficient_stats`` folds an iterator of per-agent batches
-into :class:`~repro_torch.core.engine.SufficientStats`, so multi-task ELM
-heads can be fitted over data that never fully materializes."""
+"""Deterministic synthetic LM data, and streaming stats accumulation.
+
+``make_batch`` draws structured (learnable) token streams by the
+reference's law: a mixture of ``n_modes`` Markov chains over the first
+``min(V, 256)`` tokens, whose transition logits are Gumbel draws times 2
+fixed by the seed; each row picks a mode and a first token, and every next
+token is a categorical draw from its row of the table.  Labels are the
+tokens shifted by one, -1 at the end.  A batch depends on (seed, step)
+alone, so any worker can make exactly its batch.  torch cannot replay
+``jax.random``, so the streams are not the reference's; parity tests feed
+the reference's batches as numpy.
+
+``stream_sufficient_stats`` is the pipeline-side bridge into the consensus
+engine: it folds an iterator of per-agent batches into
+:class:`~repro_torch.core.engine.SufficientStats`, so multi-task ELM heads
+can be fitted over data that never fully materializes."""
 
 from __future__ import annotations
 
-from typing import Iterable, Optional, Tuple
+import dataclasses
+from typing import Iterable, Iterator, Optional, Tuple
 
+import numpy as np
 import torch
 
 from repro_torch.core.engine import (
@@ -16,6 +30,63 @@ from repro_torch.core.engine import (
     accumulate_stats_chunked,
     init_stats,
 )
+
+
+@dataclasses.dataclass(frozen=True)
+class DataConfig:
+    vocab_size: int
+    seq_len: int
+    global_batch: int
+    seed: int = 0
+    n_modes: int = 8        # Markov mixture components
+
+
+def _generator(*key: int) -> torch.Generator:
+    """A CPU generator seeded from the integers ``key`` (numpy's
+    ``SeedSequence`` mixes them, so nearby keys give unrelated streams)."""
+    seed = int(np.random.SeedSequence(list(key)).generate_state(1)[0])
+    return torch.Generator().manual_seed(seed)
+
+
+def _gumbel(shape, gen: torch.Generator) -> torch.Tensor:
+    """Standard Gumbel draws: -log E for E ~ Exp(1)."""
+    return torch.empty(shape).exponential_(generator=gen).log_().neg_()
+
+
+def _transition_logits(cfg: DataConfig) -> torch.Tensor:
+    """(modes, vb, vb) transition logits, vb = min(V, 256)."""
+    vb = min(cfg.vocab_size, 256)
+    return _gumbel((cfg.n_modes, vb, vb), _generator(cfg.seed)) * 2.0
+
+
+def make_batch(cfg: DataConfig, step: int, device="cpu") -> dict:
+    """{tokens, labels}: (global_batch, seq_len) int32 each, drawn on the
+    CPU from (seed, step) and moved to ``device``."""
+    vb = min(cfg.vocab_size, 256)
+    trans = _transition_logits(cfg)
+    gen = _generator(cfg.seed + 1, step)
+    B, S = cfg.global_batch, cfg.seq_len
+    modes = torch.randint(0, cfg.n_modes, (B,), generator=gen)
+    tok = torch.randint(0, vb, (B,), generator=gen)
+    # a categorical draw is the argmax of logits + Gumbel noise
+    noise = _gumbel((S - 1, B, vb), gen)
+    toks = [tok]
+    for t in range(S - 1):
+        tok = torch.argmax(trans[modes, tok] + noise[t], dim=-1)
+        toks.append(tok)
+    tokens = torch.stack(toks, dim=1).to(torch.int32)
+    labels = torch.cat([tokens[:, 1:],
+                        torch.full((B, 1), -1, dtype=torch.int32)], dim=1)
+    return {"tokens": tokens.to(device), "labels": labels.to(device)}
+
+
+def batches(cfg: DataConfig, start_step: int = 0,
+            device="cpu") -> Iterator[dict]:
+    """``make_batch`` at steps start_step, start_step + 1, ..."""
+    step = start_step
+    while True:
+        yield make_batch(cfg, step, device)
+        step += 1
 
 
 def stream_sufficient_stats(

@@ -15,11 +15,14 @@ def rglru_scan_ref(log_a: torch.Tensor, b: torch.Tensor,
     """h_t = exp(log_a_t) * h_{t-1} + b_t from h_{-1} = h0.
 
     log_a, b: (B, S, D); h0: (B, D).  Returns h: (B, S, D) fp32."""
-    a = torch.exp(log_a.float())
-    bf = b.float()
     h = h0.float()
-    out = torch.empty_like(bf)
-    for t in range(a.shape[1]):
-        h = a[:, t] * h + bf[:, t]
-        out[:, t] = h
-    return out
+    # the inputs are unbound and the steps stacked, not indexed and written
+    # into a buffer: under autograd an index's or a slice assignment's
+    # backward moves the whole (B, S, D) gradient at every step, unbind
+    # and stack move it once
+    hs = []
+    for a_t, b_t in zip(torch.exp(log_a.float()).unbind(1),
+                        b.float().unbind(1)):
+        h = a_t * h + b_t
+        hs.append(h)
+    return torch.stack(hs, dim=1)

@@ -4,8 +4,9 @@ and its plain version.
 ``force_ref=True`` takes the plain version on any device.  Otherwise a CUDA
 tensor launches the kernel (or raises) and a CPU tensor takes the plain
 version.  The kernel masks a ragged S itself, so nothing is padded (the
-reference pads S to its query block).  The op is forward-only, like the TPU
-kernel: an input that requires grad raises.
+reference pads S to its query block).  The kernel is forward-only, like
+the TPU kernel: an input that requires grad raises.  The plain version
+differentiates, which is what a training step runs (``force_ref=True``).
 """
 
 from __future__ import annotations
@@ -21,7 +22,7 @@ def swa_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                   window: int, force_ref: bool = False) -> torch.Tensor:
     """q: (B, H, S, D); k, v: (B, KV, S, D).  Causal sliding-window
     attention; returns (B, H, S, D) in q's dtype."""
-    forward_only("swa_attention", q, k, v)
     if force_ref:
         return swa_ref(q, k, v, window)
+    forward_only("swa_attention", q, k, v)
     return kernel.swa(q.contiguous(), k.contiguous(), v.contiguous(), window)

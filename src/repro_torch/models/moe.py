@@ -12,9 +12,11 @@ row: a row's output depends on that row alone.
 
 The router, the dispatch, the expert products and the combine are plain
 tensor ops, as the reference computes them in jnp outside any Pallas
-kernel.  ``moe_ffn_shardmap`` (the explicit expert-parallel schedule,
-which the reference runs only under an active mesh) comes with the port of
-``models/sharding.py``.
+kernel.  ``moe_ffn_shardmap`` is the explicit expert-parallel schedule,
+which ``moe_ffn`` takes (as the reference does) only for ``moe_impl =
+"shardmap"`` under an active mesh (``models.sharding.use_mesh``): each rank
+computes its rows' share of an F slice of the experts and one all-reduce
+over the ``model`` axis sums them.
 """
 
 from __future__ import annotations
@@ -24,6 +26,7 @@ import torch.nn.functional as F
 
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import dense_init
+from repro_torch.models.sharding import MODEL_AXIS, _active_mesh
 
 
 def moe_init(gen: torch.Generator, cfg: ModelConfig):
@@ -93,9 +96,12 @@ def _route(params, cfg: ModelConfig, x: torch.Tensor):
 
 
 def moe_ffn(params, cfg: ModelConfig, x: torch.Tensor):
-    """x: (B, S, d).  Returns (out (B, S, d) in x's dtype, aux).  Every
-    ``cfg.moe_impl`` runs ``moe_ffn_gspmd`` on one device, as the
-    reference does without a mesh."""
+    """x: (B, S, d).  Returns (out, aux): ``moe_ffn_shardmap``'s block of
+    the output for ``cfg.moe_impl == "shardmap"`` under an active mesh,
+    else ``moe_ffn_gspmd``'s (B, S, d) in x's dtype (every ``moe_impl`` on
+    one device, as the reference runs without a mesh)."""
+    if cfg.moe_impl == "shardmap" and _active_mesh() is not None:
+        return moe_ffn_shardmap(params, cfg, x)
     return moe_ffn_gspmd(params, cfg, x)
 
 
@@ -132,10 +138,77 @@ def moe_ffn_gspmd(params, cfg: ModelConfig, x: torch.Tensor):
     return torch.einsum("bskd,bsk->bsd", gathered, w), aux
 
 
+def _shard_rows(mesh, batch_axes, B: int) -> slice:
+    """This rank's block of B batch rows: B split evenly over the data axes,
+    block index the row-major flattening of the rank's coordinates on them
+    (the reference's ``P(("pod", "data"), ...)``)."""
+    coords = dict(zip(mesh.axis_names, mesh.coords(mesh.rank)))
+    n, idx = 1, 0
+    for a in batch_axes:
+        n, idx = n * mesh.shape[a], idx * mesh.shape[a] + coords[a]
+    if B % n:
+        raise ValueError(f"batch {B} does not split over the data axes "
+                         f"{batch_axes} ({n} shards)")
+    return slice(idx * (B // n), (idx + 1) * (B // n))
+
+
 def moe_ffn_shardmap(params, cfg: ModelConfig, x: torch.Tensor):
-    raise NotImplementedError(
-        "moe_ffn_shardmap, the expert-parallel schedule under a mesh, comes "
-        "with the sharding slice (models/sharding.py)")
+    """The reference's explicit per-model-shard expert schedule, one rank of
+    it.  Every rank of the active mesh calls it with the whole (B, S, d)
+    input and whole fp32 weights, and returns (its block (B / n_data, S,
+    d / n_model) of the output, the reference's ``out_specs = P(batch,
+    None, "model")``, and aux).
+
+    Routing is computed on the whole batch on every rank (replicated, as
+    the reference's routing metadata), so aux is ``_route``'s.  The rank
+    then takes its batch rows (by its coordinates on the data axes) at full
+    d and an F slice of ``w_gate``, ``w_up`` and ``w_down`` (by its
+    ``model`` coordinate): dispatch, gate/up and the SiLU are local, the
+    down-projection is partial over F, and its reduction is deferred past
+    the (linear) gather and combine, so that the sum over ``model`` moves
+    the (B, S, d) token tensor rather than the (B, E, C, d) expert buffer:
+    one ``Mesh.all_reduce`` over ``model``, then this rank's d slice (the
+    reference's ``_rscatter``: ``psum`` and a slice).  Differentiable: the
+    gradient of a weight on a rank covers its F slice and its rows; summed
+    over the mesh, it is the whole-batch gradient."""
+    mesh = _active_mesh()
+    if mesh is None:
+        raise ValueError("moe_ffn_shardmap runs under an active mesh "
+                         "(models.sharding.use_mesh)")
+    if MODEL_AXIS not in mesh.axis_names:
+        raise ValueError(f"moe_ffn_shardmap needs a {MODEL_AXIS!r} axis, the "
+                         f"mesh has {mesh.axis_names}")
+    B, S, d = x.shape
+    E, K, F_ = cfg.n_experts, cfg.n_experts_active, cfg.moe_d_ff
+    slot, top_p, keep, aux, C = _route(params, cfg, x)
+    comb = (top_p * keep).to(x.dtype)
+    n = mesh.shape[MODEL_AXIS]
+    j = mesh.coords(mesh.rank)[mesh.axis_names.index(MODEL_AXIS)]
+    if F_ % n or d % n:
+        raise ValueError(f"moe_d_ff {F_} and d_model {d} must split over "
+                         f"{n} {MODEL_AXIS!r} shards")
+    fs = slice(j * (F_ // n), (j + 1) * (F_ // n))
+    rows = _shard_rows(mesh, [a for a in ("pod", "data")
+                              if a in mesh.axis_names], B)
+    x_l, slot_l, comb_l = x[rows], slot[rows], comb[rows]
+    Bl = x_l.shape[0]
+    wg = params["w_gate"]["w"][:, :, fs].to(x.dtype)
+    wu = params["w_up"]["w"][:, :, fs].to(x.dtype)
+    wd = params["w_down"]["w"][:, fs].to(x.dtype)
+    bidx = torch.arange(Bl, device=x.device)[:, None]
+    flat_slot = slot_l.reshape(Bl, S * K)
+    buf = x_l.new_zeros((Bl, E * C + 1, d))
+    buf[bidx, flat_slot] = x_l.repeat_interleave(K, dim=1)
+    buf = buf[:, :E * C].reshape(Bl, E, C, d)
+    h = F.silu(torch.einsum("becd,edf->becf", buf, wg)) * torch.einsum(
+        "becd,edf->becf", buf, wu)                         # (Bl, E, C, F/n)
+    out_part = torch.einsum("becf,efd->becd", h, wd)       # partial over F
+    out_flat = torch.cat([out_part.reshape(Bl, E * C, d),
+                          x_l.new_zeros((Bl, 1, d))], dim=1)
+    gathered = out_flat[bidx, flat_slot].reshape(Bl, S, K, d)
+    partial = torch.einsum("bskd,bsk->bsd", gathered, comb_l)
+    summed = mesh.all_reduce(partial, MODEL_AXIS)
+    return summed[..., j * (d // n):(j + 1) * (d // n)], aux
 
 
 def moe_ffn_by_expert(params, cfg: ModelConfig, x: torch.Tensor):

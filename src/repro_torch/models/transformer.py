@@ -36,6 +36,7 @@ from __future__ import annotations
 from typing import Any
 
 import torch
+import torch.utils.checkpoint
 
 from repro_torch.models.attention import (
     _qkv,
@@ -362,17 +363,51 @@ def _memory(params, cfg: ModelConfig, enc_embeds, use_kernel: bool):
     return run_encoder(params, cfg, enc_embeds, use_kernel=use_kernel)
 
 
+def _train_stack(params, cfg: ModelConfig, x: torch.Tensor, use_kernel: bool,
+                 memory):
+    """Train mode: the full cycles of ``cfg.block_pattern``, then the
+    remainder, as the reference scans them.  With ``cfg.remat`` and grad
+    enabled, each full cycle runs under ``torch.utils.checkpoint`` (the
+    reference's ``jax.checkpoint(cycle_fn)``): only the cycle's input is
+    saved, and backward recomputes the cycle; values are unchanged."""
+    pattern = cfg.block_pattern
+    n_cycles = cfg.n_layers // len(pattern)
+    layers = params["layers"]
+
+    def run(x, aux, first: int, kinds):
+        for j, kind in enumerate(kinds):
+            x, _, a = block_apply(layers[first + j], cfg, kind, x,
+                                  memory=memory, use_kernel=use_kernel)
+            aux = aux + a
+        return x, aux
+
+    remat = cfg.remat and torch.is_grad_enabled()
+    aux = 0.0       # summed block by block, in layer order
+    for c in range(n_cycles):
+        first = c * len(pattern)
+        if remat:
+            x, aux = torch.utils.checkpoint.checkpoint(
+                run, x, aux, first, pattern, use_reentrant=False)
+        else:
+            x, aux = run(x, aux, first, pattern)
+    first = n_cycles * len(pattern)
+    x, aux = run(x, aux, first, cfg.layer_kinds()[first:])
+    return x, [None] * cfg.n_layers, aux
+
+
 def _stack_apply(params, cfg: ModelConfig, x: torch.Tensor,
                  use_kernel: bool = True, *, mode: str = "train", cache=None,
                  pos=None, memory=None):
     """Every layer in order: (x, the new cache entries, all None in train
-    mode, the sum of the blocks' aux)."""
+    mode, the sum of the blocks' aux).  Train mode runs ``_train_stack``."""
     kinds = cfg.layer_kinds()
     if len(params["layers"]) != len(kinds):
         raise ValueError(
             f"params hold {len(params['layers'])} layers, cfg "
             f"{cfg.name!r} has {len(kinds)}")
-    entries = [None] * len(kinds) if cache is None else cache["layers"]
+    if mode == "train":
+        return _train_stack(params, cfg, x, use_kernel, memory)
+    entries = cache["layers"]
     new_entries, aux_total = [], 0.0
     for layer, kind, entry in zip(params["layers"], kinds, entries):
         x, ne, aux = block_apply(layer, cfg, kind, x, mode=mode, entry=entry,

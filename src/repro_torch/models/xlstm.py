@@ -193,9 +193,11 @@ def slstm_scan(params, x_pre: torch.Tensor, state=None):
         m = torch.full_like(c, NEG)
     else:                                       # (B, H, D) -> (H, B, D)
         c, n, h, m = (t.float().transpose(0, 1) for t in state)
-    hs = torch.empty((S, H, B, D), device=x_pre.device)
-    for t in range(S):
-        pre = torch.baddbmm(xs[t], h, R) + b    # (x_t + h R) + b
+    # the inputs unbound and the outputs stacked: autograd moves the
+    # (S, ...) gradients once, not at every step
+    hs = []
+    for x_t in xs.unbind(0):
+        pre = torch.baddbmm(x_t, h, R) + b      # (x_t + h R) + b
         i_t, f_t, z_t, o_t = pre.split(D, dim=-1)
         fm = f_t + m
         m_new = torch.maximum(fm, i_t)
@@ -205,9 +207,9 @@ def slstm_scan(params, x_pre: torch.Tensor, state=None):
         n = f_p * n + i_p
         h = torch.sigmoid(o_t) * c / torch.clamp(n, min=1e-6)
         m = m_new
-        hs[t] = h
+        hs.append(h)
     final = SLSTMState(*(t.transpose(0, 1).contiguous() for t in (c, n, h, m)))
-    return hs.permute(2, 0, 1, 3), final
+    return torch.stack(hs).permute(2, 0, 1, 3), final
 
 
 def slstm_block(params, cfg: ModelConfig, x: torch.Tensor, state=None):

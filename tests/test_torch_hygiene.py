@@ -39,7 +39,9 @@ def test_scan_covers_the_package():
                                   "core/mesh.py", "core/sharded_dmtl.py",
                                   "serving", "models/cache.py",
                                   "models/kvquant.py", "serve.py",
-                                  "models/moe.py"])
+                                  "models/moe.py", "models/sharding.py",
+                                  "optim", "training", "launch", "analysis",
+                                  "train_lm.py", "data/pipeline.py"])
 def test_scan_covers_the_checkpointed_slice(part):
     target = ROOT / "src" / "repro_torch" / part
     files = [target] if target.suffix else sorted(target.glob("*.py"))

@@ -282,8 +282,8 @@ def test_attention_paths_match_reference():
 
 
 def test_later_slices_raise():
-    """What is left to port raises: ``moe_ffn_shardmap`` names the sharding
-    slice (the reference reaches it only under a mesh); a windowed block
+    """What cannot run raises: ``moe_ffn_shardmap`` without an active mesh
+    (the reference reaches it only under one); a windowed block
     with ``attn_softcap`` is refused (the swa kernel has no softcap, and no
     config sets both); an unknown kind, and a mode without its entry, are
     errors.  The MoE kind, prefix embeddings and encoder-decoders run."""
@@ -293,7 +293,7 @@ def test_later_slices_raise():
     gen = torch.Generator().manual_seed(0)
     params = tt.init_model(gen, tc)
     x = torch.zeros(1, 4, tc.d_model)
-    with pytest.raises(NotImplementedError, match="sharding slice"):
+    with pytest.raises(ValueError, match="active mesh"):
         moe.moe_ffn_shardmap({}, tc, x)
     with pytest.raises(ValueError, match="unknown block kind"):
         tt.block_init(gen, tc, "conv")

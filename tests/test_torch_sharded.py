@@ -270,7 +270,9 @@ def test_entry_points_match_fit_dense(w8, case, g):
 @pytest.mark.parametrize("case,pattern", [
     ("graph_size", r"ValueError: .*prod\(agent axes\)=8"),
     ("stats_rows", r"ValueError: m=4 must equal prod\(agent axes\)=8"),
-    ("non_agent_axis", r"NotImplementedError: .*sharding\.py"),
+    # an axis that holds no agents replicates them: 4 agents on (pod 2,
+    # data 4) with agents on "data", so 8 rows of statistics are refused
+    ("non_agent_axis", r"ValueError: m=8 must equal prod\(agent axes\)=4"),
     ("axis_order", r"ValueError: .*mesh's order"),
     ("graph_runner_without_g", r"ValueError: .*needs g="),
     ("tape_with_schedule", r"ValueError: .*only the Jacobian sweep"),

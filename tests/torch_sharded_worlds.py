@@ -299,3 +299,42 @@ def failing(rank: int, bad_rank: int) -> None:
         raise RuntimeError(f"rank {rank} fails on purpose")
     mesh.ppermute(torch.ones(3), mesh.axis_shift(0, 1))
     mesh.barrier()
+
+
+def moe_shardmap_world(rank: int, inp: dict) -> dict:
+    """``moe.moe_ffn`` with ``moe_impl="shardmap"`` under ``use_mesh`` on a
+    (data, model) mesh of ``inp["mesh"]``: this rank's output block, aux,
+    and its gradients of sum(out**2) + aux / world (summed over the world,
+    they are the whole batch's); and the shape ``moe_impl="gspmd"`` gives
+    under the same mesh."""
+    from repro_torch.models import moe
+    from repro_torch.models.sharding import use_mesh
+
+    mesh = make_mesh(inp["mesh"], ("data", "model"), device="cpu")
+    params = {k: {"w": torch.tensor(v).requires_grad_()}
+              for k, v in inp["params"].items()}
+    x = torch.tensor(inp["x"])
+    cfg = inp["cfg"]
+    with use_mesh(mesh):
+        out, aux = moe.moe_ffn(params, cfg, x)
+        loss = out.square().sum() + aux / mesh.size
+        grads = torch.autograd.grad(loss, [p["w"] for p in params.values()])
+        gspmd = moe.moe_ffn(params, dataclasses.replace(
+            cfg, moe_impl="gspmd"), x)[0]
+    return {"coords": mesh.coords(rank), "out": out.detach(),
+            "aux": aux.detach(), "grads": dict(zip(params, grads)),
+            "gspmd_shape": tuple(gspmd.shape)}
+
+
+def dmtl_model_axis_world(rank: int, inp: dict) -> dict:
+    """``dmtl_elm.fit(executor="sharded")`` with the agents on ``"data"`` of
+    a mesh of ``inp["mesh"]`` over ``inp["names"]`` (a ``model`` axis, when
+    present, holds no agents): ring(4) (the torus path) and star(4) (the
+    compiled graph path)."""
+    mesh = make_mesh(inp["mesh"], inp["names"], device="cpu")
+    H, T = torch.as_tensor(inp["H"]), torch.as_tensor(inp["T"])
+    out = {"coords": mesh.coords(rank)}
+    for name, g in (("ring", graph.ring(4)), ("star", graph.star(4))):
+        out[name] = _fit(dmtl_elm.fit, H, T, g, inp["cfg"],
+                         executor="sharded", mesh=mesh, agent_axes=("data",))
+    return out
