@@ -169,6 +169,22 @@ Phases (any failure raises and the script exits non-zero):
      1024 tokens: the gathered output and the expert weights' gradients
      (summed over data, gathered over F) against ``moe_ffn_gspmd`` on the
      whole batch (``MOE_ORACLE_TOL`` fp32), the aux equal;
+  8e. the pod tooling: (a) ``python -m repro_torch.launch.dryrun`` (no card:
+     a fake world of 256 ranks, meta tensors) of recurrentgemma-2b at
+     train_4k and decode_32k and granite-moe-3b-a800m at train_4k on the
+     (16, 16) mesh, each in a process of its own, started with the script
+     (they need neither the card nor a build) and read here: its JSON's
+     keys, params against the meta tree, granite's experts on the
+     expert-FF fallback at model 16; (b) recurrentgemma-2b's parameters
+     and AdamW moments as ``param_specs(fsdp="data")``/``opt_specs`` shard
+     them over 4 gloo ranks on the card as (data 2, model 2): each rank's
+     allocator growth against the plan's bytes (each tensor rounded to 512
+     bytes), and ``unshard`` of the embedding's and one swa, RG-LRU and MLP
+     layer's parts bit-equal to the whole leaves; (c) the data-parallel
+     step on 2 gloo ranks (recurrentgemma-2b cut to 2 layers, fp32, 2 x
+     512 a rank, labels padded over another share on each) against one
+     process on the whole batch (``MICROBATCH_TOL`` in norm: gradients,
+     updated parameters, loss); no kernel launches in (a)-(c);
   9. the ``gram_tri`` and ``gram_dense`` cases of phase 3 at the main
      path's and the full shape, and the bf16 ragged ones, split by
      ``torch.profiler`` into device time per kernel, theirs and the
@@ -184,12 +200,14 @@ card's name and power limit from nvidia-smi, and
 
 from __future__ import annotations
 
+import atexit
 import dataclasses
 import json
 from concurrent.futures import ThreadPoolExecutor
 import math
 import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -3010,6 +3028,421 @@ def training_phase(torch, wrappers) -> dict:
     return out
 
 
+# phase 8e: the pod tooling.  (a) the dry run (``python -m
+# repro_torch.launch.dryrun``, no card: a fake world of 256 ranks, meta
+# tensors) of POD_DRYRUN_COMBOS, each in a process of its own, started
+# with the script and read after (b) and (c): recurrentgemma-2b's train_4k
+# pass alone takes 80 s of the host (its plain RG-LRU loop, one Python
+# meta op at a time; PERF.md section 6).  (b) the plan of
+# recurrentgemma-2b's parameters and AdamW moments made real: each of the
+# POD_PLAN_MESH ranks allocates its shards on the card, and the growth of
+# ``memory_allocated`` is held against the plan's bytes, each tensor
+# rounded up to the allocator's 512-byte block (the ranks run with
+# expandable segments, under which the allocator splits every block down to
+# that rounding; requested bytes are printed beside it).  Beside them each
+# rank places POD_DROP_ARCH's POD_DROP_LEAF, whose first dimension (the
+# vocabulary, 49155) is odd: ``_filter`` must drop ``model`` from it, as no
+# leaf of recurrentgemma-2b asks at (data 2, model 2).  (c) the
+# data-parallel step on POD_DP_WORLD ranks, recurrentgemma-2b at full width
+# cut to POD_DP_LAYERS layers, fp32, POD_DP_B x POD_DP_S a rank, labels
+# padded with -1 over POD_DP_PAD[rank] positions, against one process on
+# the concatenated batch within MICROBATCH_TOL (the same reassociation of
+# fp32 sums as (b)2 of phase 8d).
+POD_DRYRUN_COMBOS = (("recurrentgemma-2b", "train_4k"),
+                     ("recurrentgemma-2b", "decode_32k"),
+                     ("granite-moe-3b-a800m", "train_4k"))
+POD_DRYRUN_KEYS = {
+    "": ("arch", "shape", "mesh", "chips", "params", "params_active",
+         "memory", "collectives", "roofline", "cost_source", "pass_seconds"),
+    "memory": ("argument_bytes_per_device", "output_bytes_per_device",
+               "temp_bytes_per_device", "peak_estimate_bytes",
+               "peak_ok_80gb"),
+    "collectives": ("all-reduce", "all-gather", "collective-permute",
+                    "total", "counts"),
+    "roofline": ("compute_s", "compute_s_analytic", "memory_s",
+                 "collective_s", "model_flops_total", "analytic_flops_total",
+                 "useful_flops_ratio", "dominant")}
+POD_PLAN_MESH = (2, 2)
+POD_SEED = 27
+POD_ALLOC_BLOCK = 512
+POD_UNSHARD_LEAVES = (("embed", "table"),
+                      ("layers", 2, "attn", "wq", "w"),
+                      ("layers", 2, "attn", "wo", "w"),
+                      ("layers", 0, "rglru", "w_rnn", "w"),
+                      ("layers", 0, "rglru", "conv", "w"),
+                      ("layers", 0, "rglru", "lam", "lam"),
+                      ("layers", 0, "mlp", "w_gate", "w"),
+                      ("layers", 0, "mlp", "w_down", "w"))
+POD_DROP_ARCH, POD_DROP_LEAF = "granite-moe-3b-a800m", ("embed", "table")
+POD_DP_WORLD, POD_DP_LAYERS, POD_DP_B, POD_DP_S = 2, 2, 2, 512
+POD_DP_PAD = (37, 300)
+POD_TIMEOUT_S = 300.0
+
+
+def kernel_launches() -> dict:
+    """Every kernel's launch count in this process."""
+    from repro_torch.kernels.gram import kernel
+    from repro_torch.kernels.mlstm import kernel as mlstm_kernel
+    from repro_torch.kernels.rglru import kernel as rglru_kernel
+    from repro_torch.kernels.swa import kernel as swa_kernel
+
+    return all_launches({"gram": kernel, "swa": swa_kernel,
+                         "rglru": rglru_kernel, "mlstm": mlstm_kernel})
+
+
+def start_dryruns() -> dict:
+    """(a): one ``launch.dryrun`` process a combo, all started at once, on
+    the ``repro_torch`` this process imported (so a copy under test runs
+    its own), writing into a temporary directory; ``stop_dryruns`` ends
+    them and removes it."""
+    import repro_torch
+
+    env = dict(os.environ,
+               PYTHONPATH=str(Path(repro_torch.__file__).parents[1]))
+    out_dir = tempfile.mkdtemp(prefix="pod_dryrun_")
+    procs = {}
+    for arch, shape in POD_DRYRUN_COMBOS:
+        procs[arch, shape] = (time.time(), subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+             arch, "--shape", shape, "--mesh", "single", "--out", out_dir],
+            env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True))
+    return {"out_dir": out_dir, "procs": procs}
+
+
+def stop_dryruns(dryruns: dict) -> None:
+    for _, proc in dryruns["procs"].values():
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    shutil.rmtree(dryruns["out_dir"], ignore_errors=True)
+
+
+def finish_dryruns(dryruns: dict) -> list:
+    """(a)'s records, each process waited for; its JSON's keys, params
+    against the meta tree's size, and granite's expert leaves on the
+    expert-FF fallback at model 16 (its 40 experts do not divide 16).  A
+    process's seconds run from its start to its JSON's writing."""
+    from repro_torch import configs
+    from repro_torch.launch import dryrun, shapes
+    from repro_torch.launch import shardings as sh
+    from repro_torch.models.transformer import param_count
+
+    recs = []
+    out_dir = Path(dryruns["out_dir"])
+    for (arch, shape), (t0, proc) in dryruns["procs"].items():
+        log, _ = proc.communicate(timeout=POD_TIMEOUT_S)
+        check(proc.returncode == 0, f"8e (a): the dry run of {arch} {shape} "
+              f"exited {proc.returncode}:\n{log[-3000:]}")
+        path = out_dir / f"{arch}__{shape}__single.json"
+        wall = path.stat().st_mtime - t0
+        d = json.loads(path.read_text())
+        missing = [f"{part}.{k}" if part else k
+                   for part, keys in POD_DRYRUN_KEYS.items()
+                   for k in keys if k not in (d[part] if part else d)]
+        check(not missing, f"8e (a): {arch} {shape}'s JSON lacks {missing}")
+        cfg = shapes.variant_for_shape(configs.get_config(arch),
+                                       shapes.SHAPES[shape])
+        params = dryrun.meta_model(cfg)
+        n = param_count(params)
+        check(d["params"] == n, f"8e (a): {arch} params {d['params']}, the "
+              f"meta tree holds {n}")
+        rec = {"arch": arch, "shape": shape, "mesh": d["mesh"],
+               "params": d["params"], "params_active": d["params_active"],
+               "memory": d["memory"], "roofline": d["roofline"],
+               "collective_counts": d["collectives"]["counts"],
+               "collective_bytes": d["collectives"]["total"],
+               "pass_s": d["pass_seconds"], "process_s": wall}
+        if cfg.n_experts:
+            mesh = sh.MeshShape(("data", "model"), (16, 16))
+            specs = sh.filter_specs(sh.param_specs(params, "data", mesh),
+                                    mesh, params)
+            moe = [layer["moe"] for layer in specs["layers"]
+                   if "moe" in layer]
+            rec["expert_specs"] = {k: list(moe[0][k]["w"])
+                                   for k in ("w_gate", "w_up", "w_down")}
+            want = {"w_gate": [None, "data", "model"],
+                    "w_up": [None, "data", "model"],
+                    "w_down": [None, "model", "data"]}
+            bad = [m for m in moe
+                   if {k: list(m[k]["w"]) for k in want} != want]
+            check(not bad, f"8e (a): {arch}'s expert leaves at model 16 are "
+                  f"{rec['expert_specs']}, not the expert-FF fallback {want}")
+        emit({"phase": "pod_a_dryrun", **rec})
+        recs.append(rec)
+    return recs
+
+
+def pod_plan_world(rank: int, t_spawn: float) -> dict:
+    """(b)'s rank ``rank`` (module level: a spawned rank imports it): the
+    whole recurrentgemma-2b parameters drawn from POD_SEED on the card, one
+    rank at a time (peak memory), its shards of them and of the AdamW
+    moments allocated, and its shard of POD_DROP_ARCH's POD_DROP_LEAF
+    (drawn from POD_SEED); returns the allocator's growth, the plan's
+    bytes, and whether ``unshard`` of every rank's parts of
+    POD_UNSHARD_LEAVES and of POD_DROP_LEAF is the whole leaf, bit for
+    bit."""
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.core.mesh import make_mesh
+    from repro_torch.launch import dryrun
+    from repro_torch.launch import shardings as sh
+    from repro_torch.models import transformer
+    from repro_torch.optim.adamw import adamw_init
+
+    mesh = make_mesh(POD_PLAN_MESH, ("data", "model"), device="cuda")
+    ready_s = time.time() - t_spawn
+    t = time.perf_counter()
+    cfg = configs.get_config(TRAIN_ARCH)
+    meta = dryrun.meta_model(cfg)
+    raw = sh.param_specs(meta, "data", mesh)
+    pspecs = sh.filter_specs(raw, mesh, meta)
+    opt_meta = adamw_init(meta)
+    ospecs = sh.filter_specs(sh.opt_specs(opt_meta, raw), mesh, opt_meta)
+    g_meta = dryrun.meta_model(configs.get_config(POD_DROP_ARCH))
+    g_spec = sh.filter_specs(sh.param_specs(g_meta, "data", mesh), mesh,
+                             g_meta)
+    for k in POD_DROP_LEAF:
+        g_meta, g_spec = g_meta[k], g_spec[k]
+    # a one-leaf tree of its own, keyed by the leaf's name
+    drop_key = "/".join((POD_DROP_ARCH,) + POD_DROP_LEAF)
+    drop_meta, drop_specs = {drop_key: g_meta}, {drop_key: g_spec}
+
+    def stats():
+        torch.cuda.synchronize()
+        s = torch.cuda.memory_stats()
+        return s["allocated_bytes.all.current"], s["requested_bytes.all.current"]
+
+    kept = {}
+    for turn in range(mesh.size):
+        if turn == rank:
+            whole = transformer.init_model(POD_SEED, cfg, device="cuda")
+            gen = torch.Generator(device="cuda").manual_seed(POD_SEED)
+            drop_whole = sh.map_specs(
+                lambda s, x: torch.randn(x.shape, generator=gen,
+                                         dtype=x.dtype, device="cuda"),
+                drop_specs, drop_meta)
+            a0, r0 = stats()
+
+            def placed(specs, tree):
+                return sh.map_specs(lambda s, x: sh.shard(x, s, mesh).clone(
+                    memory_format=torch.contiguous_format), specs, tree)
+            shards = placed(pspecs, whole)
+            drop_shards = placed(drop_specs, drop_whole)
+            a1, r1 = stats()
+            for path in POD_UNSHARD_LEAVES:
+                leaf, spec, part = whole, pspecs, shards
+                for k in path:
+                    leaf, spec, part = leaf[k], spec[k], part[k]
+                kept["/".join(map(str, path))] = (leaf, spec, part)
+            kept[drop_key] = (drop_whole[drop_key], g_spec,
+                              drop_shards[drop_key])
+            del whole, drop_whole
+            torch.cuda.empty_cache()
+        mesh.barrier()
+    a2, r2 = stats()
+    moments = sh.map_specs(
+        lambda s, x: torch.zeros(sh.local_shape(x.shape, s, mesh),
+                                 dtype=x.dtype, device="cuda"),
+        ospecs, opt_meta)
+    a3, r3 = stats()
+    unshard_equal = {}
+    for key, (leaf, spec, part) in kept.items():
+        parts = list(mesh.all_gather(part).unbind(0))
+        unshard_equal[key] = bool(torch.equal(sh.unshard(parts, spec, mesh),
+                                              leaf))
+    plans = ((pspecs, meta), (ospecs, opt_meta), (drop_specs, drop_meta))
+    out = {"coords": mesh.coords(rank), "ready_s": ready_s,
+           "allocated_growth": (a1 - a0) + (a3 - a2),
+           "requested_growth": (r1 - r0) + (r3 - r2),
+           "plan_bytes_rounded": sum(
+               sh.plan_bytes(s, x, mesh, POD_ALLOC_BLOCK) for s, x in plans),
+           "plan_bytes": sum(sh.plan_bytes(s, x, mesh) for s, x in plans),
+           "tensors": sum(len(sh.spec_leaves(s, x)) for s, x in plans),
+           "drop_spec": str(g_spec),
+           "unshard_equal": unshard_equal,
+           "launches": kernel_launches(),
+           "seconds": time.perf_counter() - t}
+    del shards, drop_shards, moments, kept
+    return out
+
+
+def pod_dp_batch(torch, cfg):
+    """(c)'s whole batch (POD_DP_WORLD x POD_DP_B rows of POD_DP_S), the
+    pipeline's step 0, rank t's rows' labels padded with -1 over their last
+    POD_DP_PAD[t] positions."""
+    from repro_torch.data import pipeline
+
+    batch = pipeline.make_batch(pipeline.DataConfig(
+        vocab_size=cfg.vocab_size, seq_len=POD_DP_S,
+        global_batch=POD_DP_WORLD * POD_DP_B), 0, "cuda")
+    labels = batch["labels"].clone()
+    for t, pad in enumerate(POD_DP_PAD):
+        labels[t * POD_DP_B:(t + 1) * POD_DP_B, POD_DP_S - pad:] = -1
+    return {**batch, "labels": labels}
+
+
+def pod_dp_config():
+    from repro_torch import configs
+    from repro_torch.launch import shapes
+
+    cfg = shapes.variant_for_shape(configs.get_config(TRAIN_ARCH),
+                                   shapes.SHAPES["train_4k"])
+    return dataclasses.replace(cfg, n_layers=POD_DP_LAYERS, dtype="float32")
+
+
+def pod_dp_world(rank: int, t_spawn: float) -> dict:
+    """(c)'s rank ``rank``: its rows through ``loss_and_grads`` under
+    ``use_mesh`` and the AdamW update (``train_step``'s two halves, the
+    gradients kept); rank 0 then runs one process's step on the whole batch
+    from the same weights and returns the gaps, in norm."""
+    import torch
+
+    from repro_torch.core.mesh import make_mesh
+    from repro_torch.models import transformer
+    from repro_torch.models.sharding import use_mesh
+    from repro_torch.optim.adamw import AdamWConfig, adamw_init, adamw_update
+    from repro_torch.training import steps
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    mesh = make_mesh((POD_DP_WORLD,), ("data",), device="cuda")
+    ready_s = time.time() - t_spawn
+    cfg = pod_dp_config()
+    whole = pod_dp_batch(torch, cfg)
+    mine = {k: v[rank * POD_DP_B:(rank + 1) * POD_DP_B]
+            for k, v in whole.items()}
+    params = transformer.init_model(POD_SEED, cfg, device="cuda")
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    with use_mesh(mesh):
+        loss, metrics, grads = steps.loss_and_grads(params, cfg, mine)
+    params, _, om = adamw_update(grads, adamw_init(params), params,
+                                 AdamWConfig())
+    torch.cuda.synchronize()
+    out = {"coords": mesh.coords(rank), "ready_s": ready_s,
+           "step_s": time.perf_counter() - t, "loss": float(loss),
+           "ce": float(metrics["ce"]), "tokens": int(metrics["tokens"]),
+           "grad_norm": float(om["grad_norm"]),
+           "labels": int((mine["labels"] >= 0).sum()),
+           "launches": kernel_launches()}
+    if rank == 0:
+        ref = transformer.init_model(POD_SEED, cfg, device="cuda")
+        l1, m1, g1 = steps.loss_and_grads(ref, cfg, whole)
+        out["grad_rel_norm"] = tree_rel_norm(torch, grads, g1)
+        del grads
+        ref, _, om1 = adamw_update(g1, adamw_init(ref), ref, AdamWConfig())
+        out["param_rel_norm"] = tree_rel_norm(torch, params, ref)
+        out["one_process"] = {"loss": float(l1), "ce": float(m1["ce"]),
+                              "tokens": int(m1["tokens"]),
+                              "grad_norm": float(om1["grad_norm"])}
+        out["loss_rel"] = abs(float(loss) - float(l1)) / abs(float(l1))
+        out["launches_after_reference"] = kernel_launches()
+    return out
+
+
+def pod_plan_part(torch) -> dict:
+    """(b): the world's records and its gates."""
+    from repro_torch.core.mesh import spawn
+
+    t0 = time.perf_counter()
+    conf = os.environ.get("PYTORCH_CUDA_ALLOC_CONF")
+    os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
+    try:
+        ranks = spawn(pod_plan_world, math.prod(POD_PLAN_MESH),
+                      backend="gloo", device="cuda",
+                      timeout_s=POD_TIMEOUT_S, args=(time.time(),))
+    finally:
+        if conf is None:
+            del os.environ["PYTORCH_CUDA_ALLOC_CONF"]
+        else:
+            os.environ["PYTORCH_CUDA_ALLOC_CONF"] = conf
+    rec = {"arch": TRAIN_ARCH, "mesh": POD_PLAN_MESH, "fsdp": "data",
+           "ranks": [{k: r[k] for k in ("coords", "allocated_growth",
+                                        "requested_growth",
+                                        "plan_bytes_rounded", "plan_bytes",
+                                        "tensors", "drop_spec", "seconds")}
+                     for r in ranks],
+           "unshard_equal": [r["unshard_equal"] for r in ranks],
+           "ranks_ready_s": max(r["ready_s"] for r in ranks),
+           "launches": [r["launches"] for r in ranks],
+           "card": nvidia_smi(), "world_s": time.perf_counter() - t0}
+    emit({"phase": "pod_b_plan", **rec})
+    for r in ranks:
+        check(r["allocated_growth"] == r["plan_bytes_rounded"],
+              f"8e (b): rank {r['coords']} allocated {r['allocated_growth']} "
+              f"bytes for its shards, the plan holds "
+              f"{r['plan_bytes_rounded']} (each tensor to "
+              f"{POD_ALLOC_BLOCK} bytes)")
+        check(all(r["unshard_equal"].values()), f"8e (b): rank "
+              f"{r['coords']}: unshard of the parts is not the whole leaf "
+              f"{r['unshard_equal']}")
+        check(not any(r["launches"].values()), f"8e (b): rank "
+              f"{r['coords']} launched {r['launches']}")
+    return rec
+
+
+def pod_dp_part(torch) -> dict:
+    """(c): the world's records and its gates."""
+    from repro_torch.core.mesh import spawn
+
+    t0 = time.perf_counter()
+    ranks = spawn(pod_dp_world, POD_DP_WORLD, backend="gloo", device="cuda",
+                  timeout_s=POD_TIMEOUT_S, args=(time.time(),))
+    r0 = ranks[0]
+    rec = {"arch": TRAIN_ARCH, "layers": POD_DP_LAYERS, "world": POD_DP_WORLD,
+           "batch_per_rank": POD_DP_B, "seq": POD_DP_S, "pad": POD_DP_PAD,
+           "labels_per_rank": [r["labels"] for r in ranks],
+           "loss": [r["loss"] for r in ranks],
+           "grad_norm": [r["grad_norm"] for r in ranks],
+           "tokens": [r["tokens"] for r in ranks],
+           "one_process": r0["one_process"],
+           "grad_rel_norm": r0["grad_rel_norm"],
+           "param_rel_norm": r0["param_rel_norm"],
+           "loss_rel": r0["loss_rel"], "tol": MICROBATCH_TOL,
+           "step_s": [r["step_s"] for r in ranks],
+           "ranks_ready_s": max(r["ready_s"] for r in ranks),
+           "launches": [r["launches"] for r in ranks]
+           + [r0["launches_after_reference"]],
+           "world_s": time.perf_counter() - t0}
+    emit({"phase": "pod_c_data_parallel", **rec})
+    check(max(rec["grad_rel_norm"], rec["param_rel_norm"],
+              rec["loss_rel"]) <= MICROBATCH_TOL,
+          f"8e (c): the data-parallel step off one process's by "
+          f"{rec['grad_rel_norm']:.3g} (gradients), "
+          f"{rec['param_rel_norm']:.3g} (parameters), {rec['loss_rel']:.3g} "
+          f"(loss) in norm, above {MICROBATCH_TOL}")
+    check(len(set(rec["grad_norm"])) == 1 and len(set(rec["loss"])) == 1,
+          f"8e (c): the ranks' reduced loss {rec['loss']} or gradient norm "
+          f"{rec['grad_norm']} differ")
+    check(not any(v for r in rec["launches"] for v in r.values()),
+          f"8e (c): the ranks launched {rec['launches']}")
+    return rec
+
+
+def pod_phase(torch, wrappers, dryruns=None) -> dict:
+    """Phase 8e (module docstring and the comment above): (b) and (c) on
+    the card, then (a)'s processes read (``dryruns``, started with the
+    script: they need neither the card nor a build; started here when
+    None)."""
+    t_phase = time.perf_counter()
+    reset_all(wrappers)
+    own = dryruns is None
+    if own:
+        dryruns = start_dryruns()
+    try:
+        plan = pod_plan_part(torch)
+        dp = pod_dp_part(torch)
+        dry = finish_dryruns(dryruns)
+    finally:
+        if own:
+            stop_dryruns(dryruns)
+    launches = all_launches(wrappers)
+    check(not any(launches.values()), f"8e: launched {launches}")
+    return {"a_dryrun": dry, "b_plan": plan, "c_data_parallel": dp,
+            "launches": launches, "seconds": time.perf_counter() - t_phase}
+
 def main() -> int:
     t_start = time.perf_counter()
     import torch
@@ -3052,6 +3485,10 @@ def main() -> int:
           "python": sys.version.split()[0],
           "matmul_allow_tf32": torch.backends.cuda.matmul.allow_tf32,
           "cudnn_allow_tf32": torch.backends.cudnn.allow_tf32})
+    # 8e (a)'s dry runs need neither the card nor a build: they start now,
+    # on the host's other cores, and phase 8e reads them
+    pod_dryruns = start_dryruns()
+    atexit.register(stop_dryruns, pod_dryruns)
 
     # 2. build -----------------------------------------------------------
     t0 = time.perf_counter()
@@ -3525,6 +3962,15 @@ def main() -> int:
                            if k != "tol"}})
     torch.cuda.empty_cache()
 
+    # 8e. the pod tooling -------------------------------------------------------
+    pod = pod_phase(torch, wrappers, pod_dryruns)
+    emit({"phase": "pod", "seconds": pod["seconds"],
+          "a_pass_s": [r["pass_s"] for r in pod["a_dryrun"]],
+          "a_process_s": [r["process_s"] for r in pod["a_dryrun"]],
+          "b_world_s": pod["b_plan"]["world_s"],
+          "c_world_s": pod["c_data_parallel"]["world_s"]})
+    torch.cuda.empty_cache()
+
     sources = {"gram_tri": "src/repro/kernels/gram/kernel.py:224",
                "gram_fused": "src/repro/kernels/gram/kernel.py:464",
                "gram_tri_q": "src/repro/kernels/gram/kernel.py:334",
@@ -3568,6 +4014,7 @@ def main() -> int:
             "training_launches": training["launches"]["training"][name],
             "training_kernel_vs_plain_launches":
                 training["launches"]["kernel_vs_plain"][name],
+            "pod_launches": pod["launches"][name],
             "cases": cs,
         })
     emit({"phase": "total", "seconds": time.perf_counter() - t_start})

@@ -23,9 +23,12 @@ program:
 * :meth:`Mesh.agent_mesh`: the agents' mesh when some axes hold none (a
   ``model`` axis beside ``data``): those axes are replicated, each of
   their coordinates running the same agents on its own line of ranks.
-* :meth:`Mesh.axis_group` / :meth:`Mesh.all_reduce`: ``jax.lax.psum``
-  over one axis (``models/moe.py::moe_ffn_shardmap``'s sum over
-  ``model``), differentiable.
+* :meth:`Mesh.all_reduce`: ``jax.lax.psum`` over one axis or several
+  (``models/moe.py::moe_ffn_shardmap``'s sum over ``model``,
+  ``training/steps.py``'s over the batch axes), differentiable.
+* ``COLLECTIVES``: the bytes and the count of every collective this process
+  issued, by kind, as the reference's dry run reads them from the
+  partitioned HLO (``launch/dryrun.py``); ``reset_collectives``.
 * :func:`spawn`: start a world of ranks on this host, for the tests and the
   smoke script (``torchrun`` is the launcher of a real deployment).
 
@@ -33,7 +36,10 @@ Transport: the process group the caller made.  NCCL moves CUDA tensors
 when every rank has its own GPU.  gloo moves CPU tensors, and CUDA tensors
 through an explicit copy to a host buffer and back (ranks that share one
 GPU must use gloo: NCCL refuses two ranks on one device).  Nothing switches
-transport or device when one fails: a failure raises.
+transport or device when one fails: a failure raises.  The ``"fake"``
+backend (``torch.testing``'s ``FakeStore``: a world of 256 or 512 ranks in
+one process, the dry run's) moves nothing; ``ppermute`` takes a path of its
+own there, chosen by the backend's name (below).
 """
 
 from __future__ import annotations
@@ -54,6 +60,25 @@ from typing import Callable, Sequence
 
 import torch
 import torch.distributed as dist
+
+# per kind, the bytes of every call's result on this rank (an all-gather's
+# the stacked parts, a permute's one message) and the number of calls: the
+# reference's ``collective_bytes`` of a partitioned HLO module, counted
+# where the port issues them.  Reset with ``reset_collectives``.
+COLLECTIVE_KINDS = ("all-reduce", "all-gather", "collective-permute")
+COLLECTIVES = {"bytes": dict.fromkeys(COLLECTIVE_KINDS, 0),
+               "counts": dict.fromkeys(COLLECTIVE_KINDS, 0)}
+
+
+def reset_collectives() -> None:
+    for kind in COLLECTIVE_KINDS:
+        COLLECTIVES["bytes"][kind] = 0
+        COLLECTIVES["counts"][kind] = 0
+
+
+def _record(kind: str, result_numel: int, x: torch.Tensor) -> None:
+    COLLECTIVES["bytes"][kind] += result_numel * x.element_size()
+    COLLECTIVES["counts"][kind] += 1
 
 
 @dataclasses.dataclass(frozen=True)
@@ -149,19 +174,18 @@ class Mesh:
             self._groups[axes] = mine
         return self._groups[axes]
 
-    def axis_group(self, name: str):
-        """The process group of this rank's line along axis ``name`` (the
-        other coordinates fixed): the group of ``jax.lax.psum(x, name)``."""
-        return self._subgroup((name,))[0]
-
-    def all_reduce(self, x: torch.Tensor, axis: str) -> torch.Tensor:
-        """``jax.lax.psum(x, axis)``: the sum of ``x`` over this rank's line
-        along ``axis``, on every rank of it.  Differentiable
-        (``torch.distributed.nn``: the gradient is summed over the line in
-        turn); over gloo a CUDA tensor goes through host memory."""
+    def all_reduce(self, x: torch.Tensor,
+                   axis: str | Sequence[str]) -> torch.Tensor:
+        """``jax.lax.psum(x, axis)``: the sum of ``x`` over the ranks that
+        share this rank's coordinates on every axis but ``axis`` (a name, or
+        names in the mesh's order), on every rank of them.  Differentiable
+        (``torch.distributed.nn``: the gradient is summed over the same
+        ranks in turn); over gloo a CUDA tensor goes through host memory."""
         from torch.distributed.nn.functional import all_reduce
 
-        group = self.axis_group(axis)
+        group = self._subgroup((axis,) if isinstance(axis, str)
+                               else tuple(axis))[0]
+        _record("all-reduce", x.numel(), x)
         with warnings.catch_warnings():
             # deprecated for torch.distributed._functional_collectives,
             # whose all_reduce has no backward
@@ -199,7 +223,16 @@ class Mesh:
                  perm: Sequence[tuple[int, int]]) -> torch.Tensor:
         """``jax.lax.ppermute``: ``perm`` lists (source, destination) rank
         pairs, each rank at most once on each side.  Returns what this rank
-        received, zeros where it has no source."""
+        received, zeros where it has no source.
+
+        Under the ``"fake"`` backend nothing moves: the call is counted and
+        returns zeros of ``x``'s shape (a meta tensor for a meta ``x``, which
+        point-to-point ops cannot take), what a rank without a source
+        receives.  That path is the backend's, never taken on gloo or
+        nccl."""
+        _record("collective-permute", x.numel(), x)
+        if self.backend == "fake":
+            return torch.zeros_like(x)
         dst = next((d for s, d in perm if s == self.rank), None)
         src = next((s for s, d in perm if d == self.rank), None)
         if src is None and dst is None:
@@ -222,6 +255,7 @@ class Mesh:
 
     def all_gather(self, x: torch.Tensor) -> torch.Tensor:
         """Every rank's ``x`` stacked in rank order: (size, *x.shape)."""
+        _record("all-gather", self.size * x.numel(), x)
         wire = self._wire(x)
         parts = [torch.empty_like(wire) for _ in range(self.size)]
         dist.all_gather(parts, wire, group=self.group)

@@ -18,6 +18,7 @@ import dataclasses
 import pytest
 
 torch = pytest.importorskip("torch")
+torch.set_num_threads(1)  # one thread per test process: xdist's workers share the cores
 
 from repro_torch.kernels.gram import kernel, ops, ref  # noqa: E402
 from repro_torch.kernels.mlstm import kernel as mlstm_kernel  # noqa: E402

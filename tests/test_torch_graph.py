@@ -5,7 +5,8 @@ reference's edges, colorings and edge schedules for the same seeds."""
 import numpy as np
 import pytest
 
-pytest.importorskip("torch")
+torch = pytest.importorskip("torch")
+torch.set_num_threads(1)  # one thread per test process: xdist's workers share the cores
 
 from repro.core import graph as jg  # noqa: E402
 from repro_torch.core import graph as tg  # noqa: E402

@@ -41,7 +41,10 @@ def test_scan_covers_the_package():
                                   "models/kvquant.py", "serve.py",
                                   "models/moe.py", "models/sharding.py",
                                   "optim", "training", "launch", "analysis",
-                                  "train_lm.py", "data/pipeline.py"])
+                                  "train_lm.py", "data/pipeline.py",
+                                  "launch/mesh.py", "launch/shardings.py",
+                                  "launch/dryrun.py", "analysis/hillclimb.py",
+                                  "analysis/report.py"])
 def test_scan_covers_the_checkpointed_slice(part):
     target = ROOT / "src" / "repro_torch" / part
     files = [target] if target.suffix else sorted(target.glob("*.py"))

@@ -7,6 +7,7 @@ reference's limit for bf16 against fp32 paths), on the smoke configs of
 import pytest
 
 torch = pytest.importorskip("torch")
+torch.set_num_threads(1)  # one thread per test process: xdist's workers share the cores
 
 from test_torch_serving import (  # noqa: E402
     MODELS,

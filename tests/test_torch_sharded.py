@@ -26,6 +26,8 @@ from repro_torch import checkpoint, netsim
 from repro_torch.core import engine, graph, mesh
 from repro_torch.obs.counters import modeled_floats_per_iter
 
+torch.set_num_threads(1)  # one thread per test process: xdist's workers share the cores
+
 RTOL, ATOL = 1e-5, 2e-5
 CFG = engine.ConsensusConfig(r=1, iters=12, tau=2.0, zeta=1.0, delta=10.0)
 L, D = 8, 2

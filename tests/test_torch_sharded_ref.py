@@ -26,6 +26,8 @@ import torch_sharded_worlds as worlds
 from repro_torch import checkpoint
 from repro_torch.core import engine, mesh
 
+torch.set_num_threads(1)  # one thread per test process: xdist's workers share the cores
+
 RTOL, ATOL = 2e-3, 2e-4
 CFG = engine.ConsensusConfig(r=1, iters=12, tau=2.0, zeta=1.0, delta=10.0)
 CASES = ("torus8", "torus24", "star8", "gs_cube", "channel_aged_cube",

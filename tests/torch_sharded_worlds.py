@@ -338,3 +338,36 @@ def dmtl_model_axis_world(rank: int, inp: dict) -> dict:
         out[name] = _fit(dmtl_elm.fit, H, T, g, inp["cfg"],
                          executor="sharded", mesh=mesh, agent_axes=("data",))
     return out
+
+
+def data_parallel_world(rank: int, inp: dict) -> dict:
+    """A data-parallel training step on a (world,) ``"data"`` mesh: this
+    rank's rows of ``inp["batch"]`` through ``loss_and_grads`` and
+    ``train_step`` under ``use_mesh`` (every rank from a copy of the
+    weights ``inp["params"]``), and ``loss_and_grads`` in 2 microbatches.  Returns the
+    losses, metrics, gradients, the updated parameters and this rank's
+    torch thread count."""
+    from repro_torch.models.sharding import use_mesh
+    from repro_torch.optim.adamw import AdamWConfig, adamw_init, tree_map
+    from repro_torch.training import steps
+
+    world = inp["world"]
+    mesh = make_mesh((world,), ("data",), device="cpu")
+    cfg = inp["cfg"]
+    b = len(inp["batch"]["tokens"]) // world
+    batch = {k: torch.as_tensor(v[rank * b:(rank + 1) * b])
+             for k, v in inp["batch"].items()}
+
+    def params():
+        return tree_map(torch.clone, inp["params"])
+
+    with use_mesh(mesh):
+        loss, metrics, grads = steps.loss_and_grads(params(), cfg, batch)
+        loss2, _, grads2 = steps.loss_and_grads(params(), cfg, batch, 2)
+        p = params()
+        new, _, step_metrics = steps.train_step(p, adamw_init(p), batch, cfg,
+                                                AdamWConfig())
+    return {"loss": loss, "metrics": metrics, "grads": grads, "params": new,
+            "step_loss": step_metrics["loss"], "loss_mb2": loss2,
+            "grads_mb2": grads2,
+            "threads": torch.get_num_threads()}
